@@ -1,0 +1,230 @@
+"""FridoDiffusion: coarse-to-fine feature-pyramid latent diffusion, serving
+side (port of ``frido_tpu/models/frido.py``).
+
+One ``nn.Module`` whose children carry the original Lightning key tree:
+``model.diffusion_model`` (the PyUNet), ``first_stage_model`` (MS-VQGAN
+decode side) and ``cond_stage_model`` (the BERT encoder), so a state dict
+made by ``frido_tpu_torch/io/jax_weights.py`` loads with ``strict=True``.
+
+Public methods keep the JAX package's layout: latents NHWC
+[B, 32, 32, 8], images NHWC [B, 256, 256, 3]. The model lives on
+``device``: ``cuda`` unless the caller passes another (``"cpu"`` in the
+tests, ``"meta"`` for shapes only).
+
+Not ported yet: training (losses, ``q_sample``), encode, the DDIM /
+DPM-Solver++ / vanilla samplers, tiled (``split_input_params``) inference,
+checkpoint loading and the image-log galleries.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from frido_tpu_torch.config import instantiate_from_config
+from frido_tpu_torch.device import DeviceLike, resolve_device
+from frido_tpu_torch.diffusion import samplers
+from frido_tpu_torch.nn.layers import init_module_
+from frido_tpu_torch.schedules import DiffusionSchedule
+
+_FRIDO_DEFAULTS: Dict[str, Any] = dict(
+    timesteps=1000,
+    beta_schedule="linear",
+    image_size=32,
+    channels=8,
+    linear_start=1e-4,
+    linear_end=2e-2,
+    cosine_s=8e-3,
+    given_betas=None,
+    v_posterior=0.0,
+    conditioning_key=None,
+    parameterization="eps",
+    scale_factor=1.0,
+    adopted_scale_factor=False,
+    adopted_scale_factor_value=None,
+    specify_channels=(),
+)
+
+
+class DiffusionWrapper(nn.Module):
+    """Holds the denoiser as ``diffusion_model`` (key ``model.diffusion_
+    model.*``) and routes cross-attention conditioning into it."""
+
+    def __init__(self, unet_config: Dict[str, Any], device=None):
+        super().__init__()
+        self.diffusion_model = instantiate_from_config(unet_config,
+                                                       device=device)
+
+    def forward(self, x, t, context=None, stage=0, spade_pre=None):
+        return self.diffusion_model(x, t, context, stage, spade_pre)
+
+
+class FridoDiffusion(nn.Module):
+    """Built from a reference-format config node's ``params``; unknown keys
+    (``plot_*``, ``monitor``, training settings) are kept in ``extra``.
+
+    ``seed`` seeds the ``torch.Generator`` that initialises the weights
+    (skipped on the ``meta`` device).
+    """
+
+    def __init__(self, first_stage_config: Optional[Dict[str, Any]] = None,
+                 cond_stage_config: Any = "__is_unconditional__",
+                 unet_config: Optional[Dict[str, Any]] = None,
+                 device: DeviceLike = None, seed: int = 0, **kwargs: Any):
+        super().__init__()
+        if unet_config is None:
+            raise ValueError("unet_config is required")
+        if first_stage_config is None:
+            raise NotImplementedError("pixel-space DDPM is not ported yet")
+        self.device = resolve_device(device)
+        for k, v in _FRIDO_DEFAULTS.items():
+            setattr(self, k, kwargs.pop(k, v))
+        self.extra = kwargs
+        if self.extra.get("split_input_params"):
+            raise NotImplementedError("tiled inference is not ported yet")
+        if cond_stage_config == "__is_unconditional__":
+            self.conditioning_key = None
+        elif self.conditioning_key is None:
+            self.conditioning_key = "crossattn"
+        if self.conditioning_key not in (None, "crossattn"):
+            raise NotImplementedError(
+                f"conditioning_key {self.conditioning_key!r} is not ported")
+
+        self.schedule = DiffusionSchedule.create(
+            given_betas=self.given_betas, beta_schedule=self.beta_schedule,
+            timesteps=self.timesteps, linear_start=self.linear_start,
+            linear_end=self.linear_end, cosine_s=self.cosine_s,
+            v_posterior=self.v_posterior,
+            parameterization=self.parameterization)
+
+        self.embed_dim_list: List[int] = list(
+            first_stage_config["params"]["embed_dim"])
+        self.num_stage = len(self.embed_dim_list)
+        self.model = DiffusionWrapper(unet_config, device=self.device)
+        self.first_stage_model = instantiate_from_config(
+            first_stage_config, device=self.device)
+        if isinstance(cond_stage_config, dict):
+            self.cond_stage_model = instantiate_from_config(
+                cond_stage_config, device=self.device)
+        else:
+            self.cond_stage_model = None
+
+        if self.adopted_scale_factor_value is not None:
+            self.scale_factors = np.asarray(self.adopted_scale_factor_value,
+                                            np.float32)
+        elif self.adopted_scale_factor:
+            self.scale_factors = np.full((self.num_stage,), self.scale_factor,
+                                         np.float32)
+        else:
+            self.scale_factors = np.asarray(self.scale_factor, np.float32)
+
+        if self.device.type != "meta":
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            init_module_(self, gen)
+        self.eval()
+
+    # ------------------------------------------------------------------
+    def _scale_latent(self, z: torch.Tensor, invert: bool) -> torch.Tensor:
+        """Per-stage channel-block scaling (``models/frido.py:367-380``)."""
+        sf = self.scale_factors
+        if sf.ndim == 0:
+            return z / float(sf) if invert else z * float(sf)
+        parts, start = [], 0
+        for i, d in enumerate(self.embed_dim_list):
+            if start + d <= z.shape[-1]:
+                f = float(np.float32(1.0) / sf[i]) if invert else float(sf[i])
+                parts.append(z[..., start:start + d] * f)
+                start += d
+        if start < z.shape[-1]:
+            parts.append(z[..., start:])
+        return torch.cat(parts, dim=-1)
+
+    @torch.no_grad()
+    def get_learned_conditioning(self, tokens) -> torch.Tensor:
+        """int token ids [B, T] -> per-token context [B, T, n_embed]."""
+        if self.cond_stage_model is None:
+            raise ValueError("unconditional model has no cond stage")
+        tokens = torch.as_tensor(np.asarray(tokens) if not isinstance(
+            tokens, torch.Tensor) else tokens).to(self.device, torch.long)
+        return self.cond_stage_model(tokens)
+
+    def apply_model(self, x: torch.Tensor, t: torch.Tensor,
+                    context: Optional[torch.Tensor], stage: int,
+                    spade_pre=None) -> torch.Tensor:
+        """eps-hat for NHWC ``x`` at timesteps ``t``; NHWC out."""
+        if self.conditioning_key is None:
+            context = None
+        out = self.model(x.permute(0, 3, 1, 2).contiguous(), t, context,
+                         stage, spade_pre)
+        return out.permute(0, 2, 3, 1)
+
+    def spade_tables(self, x_cond: torch.Tensor, stage: int):
+        """Stage-invariant SPADE tables from the frozen NHWC channels."""
+        return self.model.diffusion_model.spade_tables(
+            x_cond.permute(0, 3, 1, 2).contiguous(), stage)
+
+    @torch.no_grad()
+    def decode_first_stage(self, z: torch.Tensor,
+                           chunk: Optional[int] = None) -> torch.Tensor:
+        """NHWC latent -> NHWC image, ``chunk`` samples at a time when
+        ``chunk`` divides the batch (``models/frido.py:389-420``); otherwise
+        the whole batch at once, with a warning."""
+        z = self._scale_latent(z, invert=True)
+        decode = self.first_stage_model.decode_interface
+        b = z.shape[0]
+        if chunk and b > chunk:
+            if b % chunk == 0:
+                return torch.cat([decode(z[i:i + chunk])
+                                  for i in range(0, b, chunk)])
+            warnings.warn(f"decode chunk {chunk} does not divide batch {b}; "
+                          f"decoding the whole batch at once (peak device "
+                          f"memory grows with the batch)")
+        return decode(z)
+
+    @torch.no_grad()
+    def sample(self, batch_size: int, context=None, uncond_context=None,
+               steps: int = 200, guidance_scale: float = 1.0,
+               x_init: Optional[torch.Tensor] = None, compute_dtype=None,
+               cfg_mode: str = "batched",
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The coarse-to-fine chain; returns the scaled NHWC latent.
+
+        ``compute_dtype`` (``torch.bfloat16`` on the card) runs the UNet in
+        that dtype while the update math and schedule stay fp32; the SPADE
+        tables are computed once per stage (``models/frido.py:548-599``).
+        """
+        shape = (batch_size, self.image_size, self.image_size, self.channels)
+        cfg = samplers.SamplerConfig(
+            schedule=self.schedule, num_steps=steps,
+            guidance_scale=guidance_scale,
+            embed_dim_list=tuple(self.embed_dim_list),
+            specify_channels=tuple(self.specify_channels),
+            num_stage=self.num_stage, cfg_mode=cfg_mode)
+        cd = compute_dtype
+        if cd is not None:
+            context = None if context is None else context.to(cd)
+            uncond_context = (None if uncond_context is None
+                              else uncond_context.to(cd))
+
+        def eps_model(x, t, ctx, stage, spade_pre=None):
+            x = x if cd is None else x.to(cd)
+            return self.apply_model(x, t, ctx, stage, spade_pre).float()
+
+        stage_invariants = None
+        if self.num_stage > 1:
+            def stage_invariants(stage, x_cond):
+                if stage == 0:
+                    return None
+                x_cond = x_cond if cd is None else x_cond.to(cd)
+                return self.spade_tables(x_cond, stage)
+
+        if x_init is not None:
+            x_init = x_init.to(self.device, torch.float32)
+        return samplers.sample(cfg, eps_model, shape, context, uncond_context,
+                               x_init=x_init, generator=generator,
+                               device=self.device,
+                               stage_invariants=stage_invariants)

@@ -1,0 +1,52 @@
+"""SPADE: spatially-adaptive normalization (port of
+``frido_tpu/nn/spade.py``), channel-first.
+
+A GroupNorm followed by gamma/beta predicted from the previous pyramid
+stage's feature map by 3x3 convs; this is how the fine stages are
+conditioned on the already-denoised coarse stages.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from frido_tpu_torch.nn.layers import Conv2d, GroupNorm
+from frido_tpu_torch.ops.image import interpolate_nearest
+
+
+class SPADE(nn.Module):
+    def __init__(self, norm_nc: int, label_nc: int, norm_eps: float = 1e-5,
+                 kernel_size: int = 3, nhidden: int = 128, device=None):
+        super().__init__()
+        pw = kernel_size // 2
+        self.param_free_norm = GroupNorm(norm_nc, eps=norm_eps, device=device)
+        # original: mlp_shared = Sequential(Conv2d, ReLU) -> key mlp_shared.0
+        self.mlp_shared = nn.ModuleDict({"0": Conv2d(
+            label_nc, nhidden, kernel_size, padding=pw, device=device)})
+        self.mlp_gamma = Conv2d(nhidden, norm_nc, kernel_size, padding=pw,
+                                device=device)
+        self.mlp_beta = Conv2d(nhidden, norm_nc, kernel_size, padding=pw,
+                               device=device)
+
+    def gamma_beta(self, cond: torch.Tensor, hw: Tuple[int, int]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The modulation tables at resolution ``hw``; during sampling they
+        depend only on the frozen previous-stage channels, so the sampler
+        computes them once per stage."""
+        cond = interpolate_nearest(cond, hw)
+        actv = F.relu(self.mlp_shared["0"](cond))
+        return self.mlp_gamma(actv), self.mlp_beta(actv)
+
+    def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor],
+                pre: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        normalized = self.param_free_norm(x)
+        if pre is None and cond is None:
+            return normalized
+        gamma, beta = pre if pre is not None else self.gamma_beta(
+            cond, tuple(x.shape[-2:]))
+        return normalized * (1 + gamma) + beta
