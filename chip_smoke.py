@@ -8,6 +8,11 @@ guidance 1.5 (sequential) and a bf16 UNet over two pyramid stages ->
 MS-VQGAN decode (per-scale VQ re-quantization, post_quant_conv, the 256^2
 conv decoder). Weights are random, made from a seed; the zero-initialised
 output convs get a seeded random init too, so the UNet does not predict 0.
+It runs twice: in the default configuration (flash attention and the VQ
+argmin on their kernels), and in the JAX package's all-kernel
+configuration (``FRIDO_CONV_MODE=pallas_fused FRIDO_GN_PALLAS=1
+FRIDO_SMALLS_ATTN=1``), where GroupNorm, short-sequence attention, every
+3x3 conv and every fused ResBlock prologue take their kernels too.
 
 Phases, in order; any failure exits non-zero and nothing is caught:
 
@@ -16,9 +21,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    version: error, and kernel / plain / library-call times (CUDA events),
    beside the least time the card could take (``bound_ms``);
 3. a toy-width model on the card against the same model on the CPU (the
-   plain path, which the CPU tests hold to the JAX package);
-4. the full-width main path, with every kernel's launch count set to 0
-   just before and read just after.
+   plain path, which the CPU tests hold to the JAX package), in both
+   configurations;
+4. the full-width main path in each configuration, with every kernel's
+   launch count set to 0 just before and read just after, and held to the
+   count the architecture gives.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit; before that, one ``{"kernels": [...]}``
@@ -28,9 +35,11 @@ no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -52,11 +61,18 @@ sys.path.insert(0, str(REPO))
 import torch.nn.functional as F  # noqa: E402
 
 from frido_tpu_torch.config import instantiate_from_config, load_yaml  # noqa: E402,E501
-from frido_tpu_torch.nn.layers import Conv2d  # noqa: E402
+from frido_tpu_torch.nn.layers import Conv2d, GroupNorm  # noqa: E402
+from frido_tpu_torch.nn.pyunet import ResBlock, UNetUpsample  # noqa: E402
+from frido_tpu_torch.nn.quantize import VectorQuantizer  # noqa: E402
+from frido_tpu_torch.nn.transformer import SpatialTransformer  # noqa: E402
 from frido_tpu_torch.nn.vqgan import AttnBlock  # noqa: E402
+from frido_tpu_torch.nn.xtransformer import XAttention  # noqa: E402
 from frido_tpu_torch.ops.cuda import build  # noqa: E402
 from frido_tpu_torch.ops.cuda.attention import (  # noqa: E402
-    attention_plain, flash_attention)
+    attention_plain, flash_attention, smalls_attention)
+from frido_tpu_torch.ops.cuda.conv import (  # noqa: E402
+    conv3x3, conv3x3_norm_silu, conv3x3_norm_silu_plain, conv3x3_plain)
+from frido_tpu_torch.ops.cuda.norm import group_norm, group_norm_plain  # noqa: E402,E501
 from frido_tpu_torch.ops.cuda.vq import vq_argmin, vq_argmin_plain  # noqa: E402,E501
 
 T2I = REPO / "configs" / "frido" / "t2i" / "frido_f16f8_coco.yaml"
@@ -66,9 +82,22 @@ PEAK_FP32_FLOPS = 67e12      # fp32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12     # bf16 tensor cores
 PEAK_BYTES = 3.35e12         # HBM3
 
-# main path, as bench.py runs it (batch 4 and 50 steps here, to stay short)
+# main path, as bench.py runs it (batch 4 and 50 steps here, to stay short;
+# the all-kernel configuration 20 steps)
 BATCH = 4
 STEPS = 50
+ALL_KERNEL_STEPS = 20
+ALL_KERNELS = {"FRIDO_CONV_MODE": "pallas_fused", "FRIDO_GN_PALLAS": "1",
+               "FRIDO_SMALLS_ATTN": "1"}
+# the t2i architecture's sites, as counted from the model: 22 ResBlocks (2
+# per level x 4 in, 2 in the middle, 3 per level x 4 out), 16
+# SpatialTransformers (levels 1-3: 6 in, 1 middle, 9 out), 3 upsample
+# convs, 32 BERT layers; the decoder's 33 3x3 convs (conv_in, 2 per
+# ResnetBlock x 14, 3 upsample, conv_out), 33 GroupNorms (2 per
+# ResnetBlock, 1 per AttnBlock, norm_out), 4 AttnBlocks, 2 codebooks
+T2I_ARCH = dict(res_blocks=22, transformers=16, upsamples=3, bert_layers=32,
+                first_stage_3x3=33, first_stage_norms=33, first_stage_attn=4,
+                codebooks=2)
 GUIDANCE = 1.5
 DECODE_CHUNK = 32
 CTX_LEN = 77
@@ -85,6 +114,17 @@ VQ_N, VQ_K, VQ_D = 32 * 32 * 32, 8192, 4
 FLASH_ATOL = 5e-5
 FLASH_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -8}
 VQ_DIST_ATOL = 1e-5        # a kernel pick may differ only within a near tie
+# the kernels of the all-kernel configuration against their plain versions
+# in fp32 on the same (exactly upcast) inputs, as the card tests; for bf16
+# each adds 2^-8 of the reference at each element (one output rounding)
+BF16_RTOL = 2.0 ** -8
+GN_ATOL = 5e-5             # fp32 group sums in another order
+SMALLS_ATOL = 5e-5         # + 2^-9 max|v| in bf16: P rounded before P.V
+CONV_ATOL_RMS = 1e-4       # of the output's RMS: K <= 17280 fp32 terms
+# the fused prologue's output is rounded to bf16 before the conv: each of
+# the K terms carries up to 2^-9 of itself, ~0.6 * 2^-9 of the output RMS
+# per element, under 2^-6 of it at 5 sigma
+FUSED_BF16_ATOL_RMS = 2.0 ** -6
 TOY_LATENT_ATOL = 1e-3     # ten fp32 UNet calls per stage, CPU vs card sums
 TOY_IMAGE_ATOL = 1e-3      # fp32 decoder, cuDNN vs CPU conv sum order
 
@@ -240,6 +280,247 @@ def vq_phase():
     return row
 
 
+def check_close(name, got, want, atol, dtype):
+    """Raise unless |kernel - plain| <= atol (+ 2^-8 |plain| for bf16)
+    everywhere; return the max error and the tolerance as text."""
+    rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
+    diff = (got.float() - want).abs()
+    err = diff.max().item()
+    tol = f"{atol:.3e}" + (f" + {rtol:.5f}*|plain|" if rtol else "")
+    if not bool((diff <= atol + rtol * want.abs()).all()):
+        raise AssertionError(f"{name}: |kernel - plain| exceeds {tol} "
+                             f"(max {err})")
+    return err, tol
+
+
+def rms(t):
+    return t.float().square().mean().sqrt().item()
+
+
+def peak_flops(dtype):
+    return PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+
+
+def kernel_row(name, source, replaces, err, ms, plain_ms, bounded,
+               library_ms):
+    bound_ms, bound_by = bounded
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def group_norm_phase():
+    """The heaviest site, the decoder's 256^2 fp32 norms (+SiLU), gives the
+    row; the UNet's sites are checked too. The library call is
+    F.group_norm, which has no SiLU: it times less work than the kernel."""
+    sites = [  # (shape, dtype, eps, silu)
+        ((BATCH, 128, 256, 256), torch.float32, 1e-6, True),   # decoder
+        ((BATCH, 192, 32, 32), torch.bfloat16, 1e-5, True),    # out head
+        ((BATCH, 384, 16, 16), torch.bfloat16, 1e-6, False),   # ST norm
+        ((BATCH, 960, 4, 4), torch.bfloat16, 1e-6, False),
+    ]
+    row = None
+    for shape, dtype, eps, silu in sites:
+        c = shape[1]
+        x = seeded(shape, 40, dtype)
+        w = 1.0 + 0.1 * seeded((c,), 41)
+        b = 0.1 * seeded((c,), 42)
+        got = group_norm(x, w, b, 32, eps, silu)
+        torch.cuda.synchronize()
+        want = group_norm_plain(x.float(), w, b, 32, eps, silu)
+        err, tol = check_close(f"group_norm {dtype} {list(shape)}", got, want,
+                               GN_ATOL, dtype)
+        ms = cuda_ms(lambda: group_norm(x, w, b, 32, eps, silu))
+        plain_ms = cuda_ms(lambda: group_norm_plain(x, w, b, 32, eps, silu))
+        wl, bl = w.to(dtype), b.to(dtype)
+        library_ms = cuda_ms(lambda: F.group_norm(x, 32, wl, bl, eps))
+        n = x.numel()
+        itemsize = torch.finfo(dtype).bits // 8
+        # per element: 3 for the sums, 2 for the affine, 3 for the SiLU
+        bounded = bound((8 if silu else 5) * n, PEAK_FP32_FLOPS,
+                        2 * n * itemsize + 8 * c)
+        log(f"group_norm {dtype} x {list(shape)} eps {eps} silu {silu}: "
+            f"max_abs_err {err:.3e} (tol {tol}), kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, F.group_norm (no SiLU) {library_ms:.4f} ms, "
+            f"bound {bounded[0]:.4f} ms ({bounded[1]})")
+        if row is None:
+            row = kernel_row("group_norm", "frido_tpu_torch/csrc/group_norm.cu",
+                             "frido_tpu/ops/pallas/norm_pallas.py:130", err,
+                             ms, plain_ms, bounded, library_ms)
+    return row
+
+
+def smalls_phase():
+    """The heaviest site, the UNet's 256-token bf16 self-attention with one
+    head of d = 384, gives the row; the other sites are checked too."""
+    sites = [  # (bh, nq, nk, d, dtype)
+        (BATCH, 256, 256, 384, torch.bfloat16),   # self, 32^2 / 2
+        (BATCH, 256, CTX_LEN, 384, torch.bfloat16),   # cross
+        (BATCH, 16, 16, 960, torch.bfloat16),     # self at 4x4, d = 960
+        (BATCH * 8, CTX_LEN, CTX_LEN, 64, torch.float32),   # BERT
+    ]
+    row = None
+    for bh, nq, nk, d, dtype in sites:
+        q = seeded((bh, nq, d), 43, dtype)
+        k = seeded((bh, nk, d), 44, dtype)
+        v = seeded((bh, nk, d), 45, dtype)
+        scale = d ** -0.5
+        got = smalls_attention(q, k, v, scale)
+        torch.cuda.synchronize()
+        want = attention_plain(q.float(), k.float(), v.float(), scale)
+        atol = SMALLS_ATOL + (0.0 if dtype == torch.float32 else
+                              2.0 ** -9 * v.float().abs().max().item())
+        err, tol = check_close(f"smalls_attention {dtype} {[bh, nq, nk, d]}",
+                               got, want, atol, dtype)
+        ms = cuda_ms(lambda: smalls_attention(q, k, v, scale))
+        plain_ms = cuda_ms(lambda: attention_plain(q, k, v, scale))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale))
+        itemsize = torch.finfo(dtype).bits // 8
+        bounded = bound(4 * bh * nq * nk * d, peak_flops(dtype),
+                        (2 * nq + 2 * nk) * bh * d * itemsize)
+        log(f"smalls_attention {dtype} bh {bh} nq {nq} nk {nk} d {d}: "
+            f"max_abs_err {err:.3e} (tol {tol}), kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+            f"{bounded[0]:.4f} ms ({bounded[1]})")
+        if row is None:
+            row = kernel_row("smalls_attention",
+                             "frido_tpu_torch/csrc/smalls_attention.cu",
+                             "frido_tpu/ops/pallas/attention.py:282", err, ms,
+                             plain_ms, bounded, library_ms)
+    return row
+
+
+def conv_operands(shape, cout, dtype, seed):
+    cin = shape[1]
+    x = seeded(shape, seed, dtype)
+    w = (seeded((cout, cin, 3, 3), seed + 1) / math.sqrt(9 * cin)).to(dtype)
+    b = (0.1 * seeded((cout,), seed + 2)).to(dtype)
+    return x, w, b
+
+
+def conv_bytes(shape, cout, itemsize):
+    n, cin, h, w = shape
+    return (n * cin * h * w + cout * cin * 9 + cout + n * cout * h * w) \
+        * itemsize
+
+
+def conv3x3_phase():
+    """The heaviest site, the decoder's 256^2 fp32 conv, gives the row; the
+    UNet's bf16 sites with Cin = 4 and Cout = 4 and the heaviest one are
+    checked too. The library call is F.conv2d (cuDNN, TF32 off)."""
+    sites = [  # (shape, cout, dtype)
+        ((BATCH, 128, 256, 256), 128, torch.float32),   # decoder
+        ((BATCH, 384, 32, 32), 384, torch.bfloat16),    # upsample conv
+        ((BATCH, 4, 32, 32), 192, torch.bfloat16),      # pre_input
+        ((BATCH, 192, 32, 32), 4, torch.bfloat16),      # out head
+    ]
+    row = None
+    for shape, cout, dtype in sites:
+        x, w, b = conv_operands(shape, cout, dtype, 50)
+        got = conv3x3(x, w, b)
+        torch.cuda.synchronize()
+        want = conv3x3_plain(x.float(), w.float(), b.float())
+        err, tol = check_close(f"conv3x3 {dtype} {list(shape)}->{cout}", got,
+                               want, CONV_ATOL_RMS * rms(want), dtype)
+        ms = cuda_ms(lambda: conv3x3(x, w, b))
+        plain_ms = cuda_ms(lambda: conv3x3_plain(x, w, b))
+        library_ms = cuda_ms(lambda: F.conv2d(x, w, b, 1, 1))
+        n, cin, h, wd = shape
+        itemsize = torch.finfo(dtype).bits // 8
+        bounded = bound(2 * n * h * wd * cout * 9 * cin, peak_flops(dtype),
+                        conv_bytes(shape, cout, itemsize))
+        log(f"conv3x3 {dtype} x {list(shape)} -> {cout}: max_abs_err "
+            f"{err:.3e} (tol {tol}), kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, F.conv2d {library_ms:.4f} ms, bound "
+            f"{bounded[0]:.4f} ms ({bounded[1]})")
+        if row is None:
+            row = kernel_row("conv3x3", "frido_tpu_torch/csrc/conv3x3.cu",
+                             "frido_tpu/ops/pallas/conv_pallas.py:177", err,
+                             ms, plain_ms, bounded, library_ms)
+    return row
+
+
+def conv3x3_norm_silu_phase():
+    """The heaviest prologue, [4, 576, 32, 32] -> 192 with SPADE (stage 1),
+    gives the row; the deepest one without SPADE (stage 0) is checked too.
+    No single library call computes the fused op: library_ms is null."""
+    sites = [  # (shape, cout, spade)
+        ((BATCH, 576, 32, 32), 192, True),
+        ((BATCH, 1920, 4, 4), 960, False),
+    ]
+    dtype = torch.bfloat16
+    row = None
+    for shape, cout, spade in sites:
+        x, w, b = conv_operands(shape, cout, dtype, 60)
+        cin = shape[1]
+        ns = 1.0 + 0.1 * seeded((cin,), 63)
+        nb = 0.1 * seeded((cin,), 64)
+        g = bt = None
+        if spade:
+            g = (0.2 * seeded(shape, 65)).to(dtype)
+            bt = (0.2 * seeded(shape, 66)).to(dtype)
+        args = (x, w, b, ns, nb, 32, 1e-5, g, bt)
+        got = conv3x3_norm_silu(*args)
+        torch.cuda.synchronize()
+        up = (lambda t: None if t is None else t.float())
+        want = conv3x3_norm_silu_plain(x.float(), w.float(), b.float(), ns,
+                                       nb, 32, 1e-5, up(g), up(bt))
+        err, tol = check_close(
+            f"conv3x3_norm_silu {list(shape)}->{cout}", got, want,
+            FUSED_BF16_ATOL_RMS * rms(want), dtype)
+        ms = cuda_ms(lambda: conv3x3_norm_silu(*args))
+        plain_ms = cuda_ms(lambda: conv3x3_norm_silu_plain(*args))
+        n, _, h, wd = shape
+        itemsize = torch.finfo(dtype).bits // 8
+        # the conv's products, and per input element 3 for the statistics,
+        # 2 for the affine, 2 for SPADE and 3 for the SiLU
+        ops = 2 * n * h * wd * cout * 9 * cin + (10 if spade else 8) * x.numel()
+        nbytes = conv_bytes(shape, cout, itemsize) + 8 * cin + (
+            2 * x.numel() * itemsize if spade else 0)
+        bounded = bound(ops, PEAK_BF16_FLOPS, nbytes)
+        log(f"conv3x3_norm_silu {dtype} x {list(shape)} -> {cout} spade "
+            f"{spade}: max_abs_err {err:.3e} (tol {tol}), kernel {ms:.4f} ms "
+            f"(2 launches), plain {plain_ms:.4f} ms, no library call, bound "
+            f"{bounded[0]:.4f} ms ({bounded[1]})")
+        if row is None:
+            row = kernel_row("conv3x3_norm_silu",
+                             "frido_tpu_torch/csrc/conv3x3.cu",
+                             "frido_tpu/ops/pallas/conv_pallas.py:376", err,
+                             ms, plain_ms, bounded, None)
+    return row
+
+
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def all_kernels():
+    """The JAX package's all-kernel configuration, for the block."""
+    saved = {k: os.environ.get(k) for k in ALL_KERNELS}
+    os.environ.update(ALL_KERNELS)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+KERNELS = {"flash_attention": flash_attention, "vq_argmin": vq_argmin,
+           "group_norm": group_norm, "smalls_attention": smalls_attention,
+           "conv3x3": conv3x3, "conv3x3_norm_silu": conv3x3_norm_silu}
+
+
+def zero_launches():
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
 # ---------------------------------------------------------------------------
 def toy_config():
     """The t2i configuration cut to toy widths; the decoder keeps one
@@ -258,9 +539,10 @@ def toy_config():
     return cfg
 
 
-def toy_phase():
+def toy_phase(label):
     """The toy model on the card (kernels) against the same weights on the
-    CPU (plain versions)."""
+    CPU (plain versions), in the current configuration; returns the
+    launches of the card run."""
     cfg = toy_config()
     cpu = instantiate_from_config(cfg, device="cpu", seed=1)
     randomize_zero_init_(cpu, 2)
@@ -270,6 +552,7 @@ def toy_phase():
     tokens = np.random.default_rng(3).integers(0, 30522, (2, CTX_LEN))
     x_init = seeded((2, 32, 32, 8), 4, device="cpu")
     latents = []
+    zero_launches()
     for model in (cpu, gpu):
         ctx = model.get_learned_conditioning(tokens)
         uctx = model.get_learned_conditioning(np.zeros_like(tokens))
@@ -319,10 +602,13 @@ def toy_phase():
     if not img_err <= TOY_IMAGE_ATOL:
         raise AssertionError(f"toy image card vs CPU {img_err} > "
                              f"{TOY_IMAGE_ATOL}")
-    log(f"toy model card vs CPU: latent max_abs_err {lat_err:.3e} (tol "
-        f"{TOY_LATENT_ATOL}), codes equal at {decided} decided rows, image "
-        f"max_abs_err {img_err:.3e} (tol {TOY_IMAGE_ATOL}), image range "
-        f"[{img_c.min().item():.3f}, {img_c.max().item():.3f}]")
+    launches = read_launches()
+    log(f"toy model card vs CPU ({label}): latent max_abs_err {lat_err:.3e} "
+        f"(tol {TOY_LATENT_ATOL}), codes equal at {decided} decided rows, "
+        f"image max_abs_err {img_err:.3e} (tol {TOY_IMAGE_ATOL}), image range "
+        f"[{img_c.min().item():.3f}, {img_c.max().item():.3f}], launches "
+        f"{launches}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -334,7 +620,7 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def drive_main_path(model, seed, steps=STEPS):
+def drive_main_path(model, seed, steps):
     """tokens -> context -> PLMS -> decode, as bench.py's pipeline; returns
     (image, latent, phase seconds)."""
     tokens = np.zeros((BATCH, CTX_LEN), np.int64)
@@ -351,29 +637,80 @@ def drive_main_path(model, seed, steps=STEPS):
     return img, z, dict(cond=t_cond, sample=t_sample, decode=t_decode)
 
 
-def main_path_phase(card):
-    t0 = time.perf_counter()
-    model = instantiate_from_config(load_yaml(str(T2I))["model"], seed=0)
-    n_zero = randomize_zero_init_(model, 1)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"main path model: {T2I.relative_to(REPO)}, {n_params} parameters, "
-        f"{n_zero} zero-init convs randomised, built in "
-        f"{time.perf_counter() - t0:.2f} s")
+def architecture(model, steps):
+    """The sites of the model that the kernels serve, counted from its
+    modules, and the UNet calls of a PLMS run of ``steps`` steps."""
+    unet = model.model.diffusion_model
+    first = model.first_stage_model
+    return dict(
+        res_blocks=count(unet, ResBlock),
+        transformers=count(unet, SpatialTransformer),
+        upsamples=sum(isinstance(m, UNetUpsample) and m.conv is not None
+                      for m in unet.modules()),
+        bert_layers=count(model.cond_stage_model, XAttention),
+        first_stage_3x3=sum(isinstance(m, Conv2d) and m.is_3x3_same
+                            for m in first.modules()),
+        first_stage_norms=count(first, GroupNorm),
+        first_stage_attn=count(first, AttnBlock),
+        codebooks=count(first, VectorQuantizer),
+        # each of the stages takes steps + 1 eps evaluations (PLMS peels
+        # step 0 into two), each two UNet calls (CFG sequential)
+        unet_calls=model.num_stage * (steps + 1) * 2,
+        table_stages=model.num_stage - 1)
 
-    torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
-    vq_argmin.launches = 0
-    img, z, secs = drive_main_path(model, seed=0)
-    launches = {"flash_attention": flash_attention.launches,
-                "vq_argmin": vq_argmin.launches}
 
+def expected_launches(arch, all_kernel):
+    """Each kernel's launches in one main-path run.
+
+    Per UNet call in the all-kernel configuration: 2 fused prologues per
+    ResBlock; 3x3 convs at pre_input, each upsample and the out head; a
+    GroupNorm in each SpatialTransformer and the out head; a self- and a
+    cross-attention in each SpatialTransformer. Once per stage after the
+    first, the SPADE tables: the pre_input_cond conv and three 3x3 convs
+    at each SPADE site (2 per ResBlock, 1 per SpatialTransformer). BERT:
+    one attention per layer for each of the 2 conditionings. Decode, once
+    per chunk: every 3x3 conv and GroupNorm of the first stage, a flash
+    attention per AttnBlock (1024 tokens), a VQ argmin per codebook."""
+    a = arch
     chunks = BATCH // DECODE_CHUNK if (BATCH > DECODE_CHUNK and
                                        BATCH % DECODE_CHUNK == 0) else 1
-    want = {"flash_attention": 4 * chunks, "vq_argmin": 2 * chunks}
+    want = dict(flash_attention=a["first_stage_attn"] * chunks,
+                vq_argmin=a["codebooks"] * chunks, group_norm=0,
+                smalls_attention=0, conv3x3=0, conv3x3_norm_silu=0)
+    if all_kernel:
+        calls = a["unet_calls"]
+        want.update(
+            conv3x3_norm_silu=2 * a["res_blocks"] * calls,
+            conv3x3=((1 + a["upsamples"] + 1) * calls
+                     + a["table_stages"] * (
+                         1 + 3 * (2 * a["res_blocks"] + a["transformers"]))
+                     + a["first_stage_3x3"] * chunks),
+            group_norm=((a["transformers"] + 1) * calls
+                        + a["first_stage_norms"] * chunks),
+            smalls_attention=(2 * a["transformers"] * calls
+                              + 2 * a["bert_layers"]))
+    return want
+
+
+def count(module, cls):
+    return sum(isinstance(m, cls) for m in module.modules())
+
+
+def main_path_phase(card, model, label, steps):
+    all_kernel = label == "all-kernel"
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    img, z, secs = drive_main_path(model, seed=0, steps=steps)
+    launches = read_launches()
+    arch = architecture(model, steps)
+    if {k: arch[k] for k in T2I_ARCH} != T2I_ARCH:
+        raise AssertionError(f"the t2i model has {arch}, not {T2I_ARCH}")
+    want = expected_launches(arch, all_kernel)
+    log(f"main path ({label}) launches {launches}; from the architecture "
+        f"{arch}: {want}")
     if launches != want:
-        raise AssertionError(f"main path launches {launches}, expected "
-                             f"{want}")
+        raise AssertionError(f"main path ({label}) launches {launches}, "
+                             f"expected {want}")
     if tuple(img.shape) != (BATCH, 256, 256, 3):
         raise AssertionError(f"image shape {tuple(img.shape)}")
     if tuple(z.shape) != (BATCH, 32, 32, 8):
@@ -386,22 +723,34 @@ def main_path_phase(card):
         raise AssertionError(f"constant image (std {spread})")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    _, _, warm = drive_main_path(model, seed=1)
-    for label, s in (("first run", secs), ("second run", warm)):
+    _, _, warm = drive_main_path(model, seed=1, steps=steps)
+    for run, s in (("first run", secs), ("second run", warm)):
         total = sum(s.values())
-        log(f"main path {label} on {card}: batch {BATCH}, PLMS {STEPS} "
-            f"steps x 2 stages, CFG {GUIDANCE} sequential, bf16 UNet: "
-            f"cond {s['cond']:.3f} s, sample {s['sample']:.3f} s, decode "
-            f"{s['decode']:.3f} s, total {total:.3f} s, "
+        log(f"main path ({label}) {run} on {card}: batch {BATCH}, PLMS "
+            f"{steps} steps x 2 stages, CFG {GUIDANCE} sequential, bf16 "
+            f"UNet: cond {s['cond']:.3f} s, sample {s['sample']:.3f} s, "
+            f"decode {s['decode']:.3f} s, total {total:.3f} s, "
             f"{BATCH / total:.4f} img/s")
-    log(f"main path: launches {launches}, image std {spread:.4f}, range "
+    log(f"main path ({label}): image std {spread:.4f}, range "
         f"[{img.min().item():.3f}, {img.max().item():.3f}], peak device "
         f"memory {peak_gib:.2f} GiB")
-    profile_phase(model)
+    profile_phase(model, label)
     return launches
 
 
-def profile_phase(model):
+def build_main_model():
+    t0 = time.perf_counter()
+    model = instantiate_from_config(load_yaml(str(T2I))["model"], seed=0)
+    n_zero = randomize_zero_init_(model, 1)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"main path model: {T2I.relative_to(REPO)}, {n_params} parameters, "
+        f"{n_zero} zero-init convs randomised, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return model
+
+
+def profile_phase(model, label):
     """Where the main path's time goes: device busy share and the heaviest
     kernels of a short run under torch.profiler (which slows the host, so
     the idle share it gives is an upper bound), then one UNet call and the
@@ -418,7 +767,8 @@ def profile_phase(model):
     unet_calls = 2 * 2 * (PROFILE_STEPS + 1)
     if kernels:
         busy = sum(e.self_device_time_total for e in kernels) / 1e6
-        log(f"profile (batch {BATCH}, PLMS {PROFILE_STEPS}, {unet_calls} "
+        log(f"profile ({label}; batch {BATCH}, PLMS {PROFILE_STEPS}, "
+            f"{unet_calls} "
             f"UNet calls, decode): wall {wall:.3f} s under the profiler, "
             f"device busy {busy:.3f} s, idle share {1 - busy / wall:.3f}, "
             f"{sum(e.count for e in kernels)} kernel launches")
@@ -441,7 +791,8 @@ def profile_phase(model):
                           reps=5)
         cast_ms = cuda_ms(lambda: [p.to(torch.bfloat16)
                                    for p in unet.parameters()], reps=5)
-    log(f"UNet call (batch {BATCH}, bf16, stage 1): {call_ms:.3f} ms; "
+    log(f"UNet call ({label}; batch {BATCH}, bf16, stage 1): "
+        f"{call_ms:.3f} ms; "
         f"casting its {sum(1 for _ in unet.parameters())} weight tensors "
         f"to bf16 alone: {cast_ms:.3f} ms")
 
@@ -450,10 +801,22 @@ def main():
     card = setup()
     rows = [flash_phase(torch.float32), vq_phase()]
     flash_phase(torch.bfloat16)   # the kernel's bf16 form; off the main path
-    toy_phase()
-    launches = main_path_phase(card)
+    rows += [group_norm_phase(), smalls_phase(), conv3x3_norm_silu_phase(),
+             conv3x3_phase()]
+    toy_phase("default")
+    with all_kernels():
+        toy = toy_phase("all-kernel")
+    if not all(toy[name] > 0 for name in KERNELS):
+        raise AssertionError(f"toy all-kernel run launched {toy}")
+
+    model = build_main_model()
+    default = main_path_phase(card, model, "default", STEPS)
+    with all_kernels():
+        opt_in = main_path_phase(card, model, "all-kernel", ALL_KERNEL_STEPS)
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        path = default if row["name"] in ("flash_attention", "vq_argmin") \
+            else opt_in
+        row["launches"] = path[row["name"]]
     log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -9,6 +9,14 @@ each conv and matmul casts its weights to the activation dtype, and norms
 compute in fp32 and cast back. It is applied per layer, not through
 ``torch.autocast``.
 
+Kernel routing, the JAX package's (``nn/layers.py:223-296``,
+``ops/norm.py:53``) under the switches of ``ops/cuda/dispatch.py``:
+``GroupNorm`` takes the group-norm kernel under ``FRIDO_GN_PALLAS=1``;
+``Conv2d`` takes the conv kernel at every 3x3 / stride-1 / pad-1 site
+under ``FRIDO_CONV_MODE=pallas`` or ``pallas_fused``, and its
+``fused_norm`` route (the ResBlock prologue folded into the conv) runs the
+prologue variant. Elsewhere both keep their plain PyTorch form.
+
 Initialisers follow the JAX package too: convs and dense layers draw
 U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (flax ``variance_scaling(1/3, fan_in,
 uniform)``), biases start at 0, ``zero_init`` layers at 0, embeddings from
@@ -25,7 +33,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from frido_tpu_torch.ops.norm import group_norm
+from frido_tpu_torch.ops.cuda import dispatch
+from frido_tpu_torch.ops.cuda.conv import conv3x3, conv3x3_norm_silu
+from frido_tpu_torch.ops.cuda.norm import group_norm, group_norm_plain
 
 
 def _uniform_(t: torch.Tensor, bound: float, gen: torch.Generator) -> None:
@@ -58,7 +68,11 @@ class _Linearish(nn.Module):
 
 
 class Conv2d(_Linearish):
-    """torch-style Conv2d; weights cast to the input dtype."""
+    """torch-style Conv2d; weights cast to the input dtype.
+
+    ``fused_norm`` (the arguments of :meth:`GroupNorm.fused_args`) asks for
+    GroupNorm -> SPADE modulation -> SiLU -> this conv as one kernel; only
+    a 3x3 / stride-1 / pad-1 conv takes it."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 0, bias: bool = True,
@@ -69,9 +83,22 @@ class Conv2d(_Linearish):
         self.stride = stride
         self.padding = padding
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def is_3x3_same(self) -> bool:
+        return (self.weight.shape[-1] == 3 and self.stride == 1
+                and self.padding == 1)
+
+    def forward(self, x: torch.Tensor,
+                fused_norm: Optional[dict] = None) -> torch.Tensor:
         w, b = self._wb(x.dtype)
-        return F.conv2d(x, w, b, self.stride, self.padding)
+        if fused_norm is None and not (self.is_3x3_same
+                                       and dispatch.use_conv_kernel()):
+            return F.conv2d(x, w, b, self.stride, self.padding)
+        if not self.is_3x3_same:
+            raise ValueError("fused_norm needs a 3x3 / stride-1 / pad-1 conv")
+        if fused_norm is not None:
+            return conv3x3_norm_silu(x, w, b, **fused_norm)
+        return conv3x3(x, w, b)
 
 
 class Conv1d(_Linearish):
@@ -132,7 +159,8 @@ class _Affine(nn.Module):
 
 
 class GroupNorm(_Affine):
-    """GroupNorm over dim 1 (channels), fp32 compute, optional fused SiLU."""
+    """GroupNorm over dim 1 (channels), fp32 compute, optional fused SiLU;
+    the group-norm kernel under ``FRIDO_GN_PALLAS=1``."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-6,
                  device=None):
@@ -141,8 +169,19 @@ class GroupNorm(_Affine):
         self.eps = eps
 
     def forward(self, x: torch.Tensor, fuse_silu: bool = False) -> torch.Tensor:
-        return group_norm(x, self.weight, self.bias, self.num_groups,
-                          self.eps, fuse_silu)
+        norm = (group_norm if dispatch.use_group_norm_kernel()
+                else group_norm_plain)
+        return norm(x, self.weight, self.bias, self.num_groups, self.eps,
+                    fuse_silu)
+
+    def fused_args(self, gamma: Optional[torch.Tensor] = None,
+                   beta: Optional[torch.Tensor] = None) -> dict:
+        """This norm's parameters as :class:`Conv2d`'s ``fused_norm``, with
+        optional SPADE tables (the JAX package's ``GroupNorm(raw=True)``
+        accessor)."""
+        return dict(nscale=self.weight, nbias=self.bias,
+                    num_groups=self.num_groups, eps=self.eps, gamma=gamma,
+                    beta=beta)
 
 
 class LayerNorm(_Affine):

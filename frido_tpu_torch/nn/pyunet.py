@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from frido_tpu_torch.nn.layers import Conv2d, Dense, Embed, GroupNorm
 from frido_tpu_torch.nn.spade import SPADE
 from frido_tpu_torch.nn.transformer import SpatialTransformer
+from frido_tpu_torch.ops.cuda import dispatch
 from frido_tpu_torch.ops.image import avg_pool_2x, interpolate_nearest_2x
 
 
@@ -74,9 +75,11 @@ class UNetDownsample(nn.Module):
 
 
 class ResBlock(nn.Module):
-    """guided-diffusion ResBlock with SPADE norms, on the sampling path of
-    the default conv mode (``_norm_silu_conv``, ``:130-136``): SPADE ->
-    SiLU -> conv, emb added before the second norm."""
+    """guided-diffusion ResBlock with SPADE norms on the sampling path
+    (``_norm_silu_conv``, ``:130-153``, and its call sites ``:181-195``):
+    SPADE -> SiLU -> conv twice, emb added before the second norm. Under
+    ``FRIDO_CONV_MODE=pallas_fused`` each prologue is folded into its conv
+    (one kernel per prologue); otherwise the ops run one by one."""
 
     def __init__(self, channels: int, out_channels: int, emb_channels: int,
                  spade_channels: int, device=None):
@@ -99,16 +102,22 @@ class ResBlock(nn.Module):
         return (self.in_layers["0"].gamma_beta(cond, hw),
                 self.out_layers["0"].gamma_beta(cond, hw))
 
+    @staticmethod
+    def _norm_silu_conv(norm, conv, x, feat_cond, pre):
+        if dispatch.use_fused_prologue():
+            return conv(x, fused_norm=norm.fused_args(x, feat_cond, pre))
+        return conv(F.silu(norm(x, feat_cond, pre)))
+
     def forward(self, x, emb, feat_cond=None, spade_pre=None):
         pre_in, pre_out = spade_pre if spade_pre is not None else (None, None)
-        h = self.in_layers["2"](F.silu(
-            self.in_layers["0"](x, feat_cond, pre_in)))
+        h = self._norm_silu_conv(self.in_layers["0"], self.in_layers["2"], x,
+                                 feat_cond, pre_in)
         emb_out = self.emb_layers["1"](F.silu(emb)).to(h.dtype)
         h = h + emb_out[:, :, None, None]
         skip = (self.skip_connection(x) if self.skip_connection is not None
                 else x)
-        return skip + self.out_layers["3"](F.silu(
-            self.out_layers["0"](h, feat_cond, pre_out)))
+        return skip + self._norm_silu_conv(
+            self.out_layers["0"], self.out_layers["3"], h, feat_cond, pre_out)
 
 
 def _heads_for(ch: int, num_heads: int, num_head_channels: int,

@@ -41,12 +41,27 @@ class SPADE(nn.Module):
         actv = F.relu(self.mlp_shared["0"](cond))
         return self.mlp_gamma(actv), self.mlp_beta(actv)
 
+    def _tables(self, x, cond, pre):
+        if pre is None and cond is None:
+            return None
+        return pre if pre is not None else self.gamma_beta(
+            cond, tuple(x.shape[-2:]))
+
     def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor],
                 pre: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                 ) -> torch.Tensor:
         normalized = self.param_free_norm(x)
-        if pre is None and cond is None:
+        tables = self._tables(x, cond, pre)
+        if tables is None:
             return normalized
-        gamma, beta = pre if pre is not None else self.gamma_beta(
-            cond, tuple(x.shape[-2:]))
+        gamma, beta = tables
         return normalized * (1 + gamma) + beta
+
+    def fused_args(self, x: torch.Tensor, cond: Optional[torch.Tensor],
+                   pre: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                   ) -> dict:
+        """This norm as :class:`Conv2d`'s ``fused_norm``: the
+        parameter-free norm's affine, groups and eps, and the (gamma, beta)
+        tables, or none without ``cond`` and ``pre`` (stage 0)."""
+        gamma, beta = self._tables(x, cond, pre) or (None, None)
+        return self.param_free_norm.fused_args(gamma, beta)

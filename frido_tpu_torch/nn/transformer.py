@@ -2,14 +2,17 @@
 ``frido_tpu/nn/transformer.py``), channel-first around token-major attention.
 
 :func:`dot_attention` is the one dispatch point for every attention of the
-port. A CUDA attention over at least ``_FLASH_MIN_KV`` keys goes to the
+port (``frido_tpu/nn/transformer.py:67-98``), under the switches of
+``ops/cuda/dispatch.py``. An attention over at least 512 keys goes to the
 hand-written flash kernel: on the t2i path that is the VQGAN decoder's
 1024-token ``AttnBlock``, the site set where the JAX package uses its
-Pallas flash kernel (``nn/transformer.py:87-90``). Every other attention
-(UNet self-attention over 256/64/16 tokens, cross-attention and the BERT
-encoder over 77) takes the plain matmul-softmax-matmul form, as the JAX
-package leaves those sites to XLA. The gate is the JAX package's site set,
-not a measurement on the card; it is to be measured again there.
+Pallas flash kernel (``nn/transformer.py:87-90``). Under
+``FRIDO_SMALLS_ATTN=1`` every other attention of at most 512 tokens (UNet
+self-attention over 256/64/16 tokens, cross-attention and the BERT encoder
+over 77) goes to the short-sequence kernel; without it they take the plain
+matmul-softmax-matmul form, as the JAX package leaves those sites to XLA.
+The gates are the JAX package's site sets, not measurements on the card.
+On CPU tensors every kernel wrapper computes the plain form.
 """
 
 from __future__ import annotations
@@ -22,16 +25,20 @@ import torch.nn.functional as F
 
 from frido_tpu_torch.nn.layers import Conv2d, Dense, LayerNorm
 from frido_tpu_torch.nn.spade import SPADE
-from frido_tpu_torch.ops.cuda.attention import attention_plain, flash_attention
-
-_FLASH_MIN_KV = 512
+from frido_tpu_torch.ops.cuda import dispatch
+from frido_tpu_torch.ops.cuda.attention import (attention_plain,
+                                                flash_attention,
+                                                smalls_attention)
 
 
 def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> torch.Tensor:
     """softmax(q k^T * scale) v over [..., N, d], fp32 softmax."""
-    if q.is_cuda and k.shape[-2] >= _FLASH_MIN_KV:
+    nq, nk = q.shape[-2], k.shape[-2]
+    if dispatch.use_flash(nk):
         return flash_attention(q, k, v, scale)
+    if dispatch.use_smalls(nq, nk):
+        return smalls_attention(q, k, v, scale)
     return attention_plain(q, k, v, scale)
 
 

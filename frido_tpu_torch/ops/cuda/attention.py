@@ -1,17 +1,28 @@
-"""Flash attention: the hand-written Hopper kernel and its plain version.
+"""Flash and short-sequence attention: the hand-written Hopper kernels
+and their plain version.
 
-Replaces the TPU kernel ``frido_tpu/ops/pallas/attention.py:301``
-``flash_attention`` (``_flash_forward`` :127, ``_flash_kernel`` :49).
-Source: ``frido_tpu_torch/csrc/flash_attention.cu``, which says what bounds
-it on the card (fp32 arithmetic at the decoder's d = 512 site) and how its
-tiling handles d up to 512 in shared memory.
+- :func:`flash_attention` replaces the TPU kernel
+  ``frido_tpu/ops/pallas/attention.py:301`` ``flash_attention``
+  (``_flash_forward`` :127, ``_flash_kernel`` :49). Source:
+  ``frido_tpu_torch/csrc/flash_attention.cu``, which says what bounds it on
+  the card (fp32 arithmetic at the decoder's d = 512 site) and how its
+  tiling handles d up to 512 in shared memory. It takes fp32 or bf16 and d
+  a multiple of 4 up to 512.
+- :func:`smalls_attention` replaces the TPU kernel
+  ``frido_tpu/ops/pallas/attention.py:282`` ``smalls_attention``
+  (``_smalls_forward`` :233, ``_smalls_kernel`` :187): an exact softmax
+  over whole score rows of at most 512 keys. Source:
+  ``frido_tpu_torch/csrc/smalls_attention.cu``, which says how it streams
+  q, k and v through shared memory in d chunks so that d = 960 fits. It
+  takes fp32 or bf16 and any d.
 
-:func:`flash_attention` launches the kernel for CUDA tensors (fp32 or
-bf16, d a multiple of 4 up to 512) and raises on anything it cannot take;
-for CPU tensors it computes :func:`attention_plain`. Its backward
-recomputes through :func:`attention_plain`, as ``_flash_bwd`` does
-(``attention.py:177-181``): there is no backward kernel.
-``flash_attention.launches`` counts kernel launches.
+Both launch their kernel for CUDA tensors and raise on anything they cannot
+take; for CPU tensors they compute :func:`attention_plain`, whose rounding
+of the probabilities to the inputs' dtype is the kernels' own. Their
+backward recomputes through :func:`attention_plain`, as ``_flash_bwd`` and
+``_smalls_bwd`` do (``attention.py:177-181``, ``:272-276``): there is no
+backward kernel. ``.launches`` on each counts kernel launches;
+``smalls_attention.calls`` counts its calls on any device.
 """
 
 from __future__ import annotations
@@ -23,6 +34,7 @@ import torch
 from frido_tpu_torch.ops.cuda.build import library
 
 _MAX_D = 512
+_SMALLS_MAX_NK = 512
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -34,25 +46,25 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(p, v.to(q.dtype)).to(q.dtype)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = library("flash_attention")
+def _lib(name: str, prefix: str) -> ctypes.CDLL:
+    lib = library(name)
     if not getattr(lib, "_frido_typed", False):
         args = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_void_p]
-        for fn in (lib.frido_flash_attention_f32,
-                   lib.frido_flash_attention_bf16):
+        for fn in (getattr(lib, f"frido_{name}_f32"),
+                   getattr(lib, f"frido_{name}_bf16")):
             fn.argtypes = args
             fn.restype = ctypes.c_int
-        lib.frido_flash_error_string.argtypes = [ctypes.c_int]
-        lib.frido_flash_error_string.restype = ctypes.c_char_p
+        err = getattr(lib, f"frido_{prefix}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
         lib._frido_typed = True
     return lib
 
 
-def _check(q, k, v):
+def _check(name, q, k, v):
     if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash_attention kernel takes fp32 or bf16, "
-                        f"got {q.dtype}")
+        raise TypeError(f"{name} kernel takes fp32 or bf16, got {q.dtype}")
     for t in (k, v):
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError("q, k, v must share dtype and device")
@@ -60,17 +72,12 @@ def _check(q, k, v):
             or q.shape[-1] != k.shape[-1]:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} are not [..., N, d] alike")
-    d = q.shape[-1]
-    if d % 4 or d > _MAX_D:
-        raise ValueError(f"flash_attention kernel takes d % 4 == 0 and "
-                         f"d <= {_MAX_D}, got d={d}")
-    if q.shape[-2] == 0 or k.shape[-2] == 0:
-        raise ValueError("flash_attention kernel needs N >= 1")
+    if q.shape[-2] == 0 or k.shape[-2] == 0 or q.shape[-1] == 0:
+        raise ValueError(f"{name} kernel needs N >= 1 and d >= 1")
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            scale: float) -> torch.Tensor:
-    _check(q, k, v)
+def _launch(name: str, prefix: str, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor, scale: float) -> torch.Tensor:
     lead = q.shape[:-2]
     nq, d = q.shape[-2:]
     nk = k.shape[-2]
@@ -79,33 +86,53 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     v3 = v.reshape(-1, nk, d).contiguous()
     bh = q3.shape[0]
     if bh > 65535:
-        raise ValueError(f"flash_attention kernel takes at most 65535 "
-                         f"batch*heads, got {bh}")
+        raise ValueError(f"{name} kernel takes at most 65535 batch*heads, "
+                         f"got {bh}")
     for t in (q3, k3, v3):
         if t.data_ptr() % 16:
-            raise ValueError("flash_attention kernel needs 16-byte aligned "
-                             "tensors")
+            raise ValueError(f"{name} kernel needs 16-byte aligned tensors")
     out = torch.empty_like(q3)
-    lib = _lib()
-    fn = (lib.frido_flash_attention_f32 if q.dtype == torch.float32
-          else lib.frido_flash_attention_bf16)
+    lib = _lib(name, prefix)
+    fn = getattr(lib, f"frido_{name}_"
+                 f"{'f32' if q.dtype == torch.float32 else 'bf16'}")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(),
                 bh, nq, nk, d, float(scale), stream)
     if rc != 0:
-        raise RuntimeError("flash_attention kernel launch failed: "
-                           + lib.frido_flash_error_string(rc).decode())
-    flash_attention.launches += 1
+        raise RuntimeError(
+            f"{name} kernel launch failed: "
+            + getattr(lib, f"frido_{prefix}_error_string")(rc).decode())
     return out.reshape(*lead, nq, d)
 
 
-class _FlashAttention(torch.autograd.Function):
+def _launch_flash(q, k, v, scale):
+    _check("flash_attention", q, k, v)
+    d = q.shape[-1]
+    if d % 4 or d > _MAX_D:
+        raise ValueError(f"flash_attention kernel takes d % 4 == 0 and "
+                         f"d <= {_MAX_D}, got d={d}")
+    out = _launch("flash_attention", "flash", q, k, v, scale)
+    flash_attention.launches += 1
+    return out
+
+
+def _launch_smalls(q, k, v, scale):
+    _check("smalls_attention", q, k, v)
+    if k.shape[-2] > _SMALLS_MAX_NK:
+        raise ValueError(f"smalls_attention kernel takes at most "
+                         f"{_SMALLS_MAX_NK} keys, got {k.shape[-2]}")
+    out = _launch("smalls_attention", "smalls", q, k, v, scale)
+    smalls_attention.launches += 1
+    return out
+
+
+class _Attention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, scale):
+    def forward(ctx, q, k, v, scale, launch):
         ctx.save_for_backward(q, k, v)
         ctx.scale = scale
-        return _launch(q, k, v, scale)
+        return launch(q, k, v, scale)
 
     @staticmethod
     def backward(ctx, grad):
@@ -114,7 +141,7 @@ class _FlashAttention(torch.autograd.Function):
             qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
             out = attention_plain(qq, kk, vv, ctx.scale)
             dq, dk, dv = torch.autograd.grad(out, (qq, kk, vv), grad)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -128,7 +155,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_plain(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return _FlashAttention.apply(q, k, v, float(scale))
+    return _Attention.apply(q, k, v, float(scale), _launch_flash)
 
 
 flash_attention.launches = 0
+
+
+def smalls_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale) v over [..., N, d] for at most 512 keys, in
+    one pass with the whole score rows on chip.
+
+    CUDA tensors go to the kernel (or raise); CPU tensors take
+    :func:`attention_plain`.
+    """
+    smalls_attention.calls += 1
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"smalls_attention: unsupported device {q.device}")
+    return _Attention.apply(q, k, v, float(scale), _launch_smalls)
+
+
+smalls_attention.calls = 0
+smalls_attention.launches = 0

@@ -7,7 +7,8 @@ go to ``build/kernels/`` at the repository root (listed in
 source is rebuilt and an unchanged one is reused. Nothing is built when a
 module is imported: the first CUDA launch of a kernel builds it, and
 :func:`build` builds several at once, one ``nvcc`` process each, all
-started together.
+started together. A source may include the shared headers of ``csrc/``
+(``*.cuh``); they are part of every library's hash.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from typing import Dict, Iterable
 
 CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("flash_attention", "vq_argmin")
+KERNELS = ("flash_attention", "vq_argmin", "group_norm", "smalls_attention",
+           "conv3x3")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,8 +44,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 

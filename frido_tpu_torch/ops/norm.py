@@ -6,6 +6,9 @@ the group stats and the affine folded into per-channel vectors, then an
 optional SiLU, and the result cast back to the input dtype. Two epsilon
 conventions coexist: 1e-5 in the UNet (guided-diffusion ``GroupNorm32``)
 and 1e-6 in the VQGAN decoder and the SpatialTransformer norm.
+
+This is the plain version of the group-norm kernel
+(``ops/cuda/norm.py``), which computes the same.
 """
 
 from __future__ import annotations

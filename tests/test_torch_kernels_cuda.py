@@ -6,21 +6,42 @@ torch and the port, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
-Flash is held to the plain version in fp32 on the same inputs (bf16
-inputs are upcast exactly). Tolerance: 5e-5 absolute (fp32 sums over
-<= 1024 keys taken in another order; TF32 off), plus, for bf16, 2^-8 of
-the reference at each element: the kernel computes in fp32 and rounds its
-output to bf16 once, which costs at most half of that. VQ indices must be
-equal wherever the best and second-best distances differ by more than
-1e-5.
+Every kernel is held to its plain version in fp32 on the same inputs
+(bf16 inputs are upcast exactly; TF32 off for matmuls and cuDNN). For bf16
+each tolerance adds 2^-8 of the reference at each element: the kernels
+compute in fp32 and round their output to bf16 once, which costs at most
+half of that. The absolute parts:
+
+- flash, group_norm, smalls_attention: 5e-5 (fp32 sums taken in another
+  order). smalls_attention in bf16 also rounds the probabilities to bf16
+  before P.V, which moves an output by at most 2^-9 * max|v|, added to its
+  tolerance.
+- conv3x3 and conv3x3_norm_silu: 1e-4 of the output's RMS (fp32 sums over
+  K = 9 * Cin <= 17280 terms in another order). conv3x3_norm_silu in bf16
+  rounds the prologue's output to bf16 before the conv; each of the K
+  terms then carries an independent error of up to 2^-9 of itself, which
+  sums to about 0.6 * 2^-9 of the output's RMS per element and stays under
+  2^-6 of it at 5 sigma; that is its absolute part in bf16.
+
+VQ indices must be equal wherever the best and second-best distances
+differ by more than 1e-5. Each backward is held to the plain version's
+autograd within 1e-4 (fp32, small shapes).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from frido_tpu_torch.ops.cuda.attention import attention_plain, flash_attention
+from frido_tpu_torch.ops.cuda.attention import (attention_plain,
+                                                flash_attention,
+                                                smalls_attention)
+from frido_tpu_torch.ops.cuda.conv import (conv3x3, conv3x3_norm_silu,
+                                           conv3x3_norm_silu_plain,
+                                           conv3x3_plain)
+from frido_tpu_torch.ops.cuda.norm import group_norm, group_norm_plain
 from frido_tpu_torch.ops.cuda.vq import vq_argmin, vq_argmin_plain
+
+BF16_RTOL = 2.0 ** -8
 
 
 @pytest.fixture
@@ -28,6 +49,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -112,3 +134,199 @@ def test_vq_kernel_ties_go_to_lowest_index(cuda):
                    torch.zeros(4, 4)]).to(cuda)
     z = torch.ones(16, 4, device=cuda)
     assert (vq_argmin(z, e).cpu() == 0).all()
+
+
+def _within(got, want, atol, dtype):
+    """|kernel - plain| <= atol + 2^-8 |plain| (bf16) elementwise."""
+    rtol = 0.0 if dtype == torch.float32 else BF16_RTOL
+    err = (got.float() - want).abs()
+    return bool((err <= atol + rtol * want.abs()).all()), err.max().item()
+
+
+def _rms(t):
+    return t.float().square().mean().sqrt().item()
+
+
+@pytest.mark.parametrize("shape,eps,silu", [
+    ((4, 192, 32, 32), 1e-5, True),    # UNet out head, C/G = 6
+    ((4, 384, 16, 16), 1e-6, False),   # SpatialTransformer norm
+    ((4, 960, 4, 4), 1e-6, False),     # H = W = 4
+    ((4, 128, 256, 256), 1e-6, True),  # decoder 256^2, 262,144 per group
+    ((2, 64, 5, 3), 1e-5, True),       # H*W % 4 != 0: the scalar path
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_kernel_matches_plain(cuda, shape, eps, silu, dtype):
+    c = shape[1]
+    x = _randn(shape, 20, cuda, dtype) * 2.0 + 0.5
+    w = 1.0 + 0.1 * _randn((c,), 21, cuda)
+    b = 0.1 * _randn((c,), 22, cuda)
+    before = group_norm.launches
+    got = group_norm(x, w, b, 32, eps, silu)
+    torch.cuda.synchronize()
+    assert group_norm.launches == before + 1
+    want = group_norm_plain(x.float(), w, b, 32, eps, silu)
+    assert got.dtype == dtype and got.shape == want.shape
+    ok, err = _within(got, want, 5e-5, dtype)
+    assert ok, err
+
+
+def test_group_norm_kernel_constant_group_gives_bias(cuda):
+    """The clamped variance: a constant group of 33.3 has E[x^2] - E[x]^2 < 0
+    in fp32 (the plain version's sums), which unclamped is NaN at eps 1e-6.
+    The output is the bias, up to the rounding of x * rstd ~ 3.3e4."""
+    x = torch.full((2, 64, 16, 16), 33.3, device=cuda)
+    w = torch.ones(64, device=cuda)
+    b = torch.linspace(-1, 1, 64, device=cuda)
+    got = group_norm(x, w, b, 32, 1e-6)
+    assert bool(torch.isfinite(got).all())
+    assert (got - b[None, :, None, None]).abs().max().item() <= 4 * 2.0 ** -8
+
+
+@pytest.mark.parametrize("bh,nq,nk,d", [
+    (4, 256, 256, 384),   # UNet self-attention, 256 tokens, one head
+    (4, 256, 77, 384),    # cross-attention over 77 text tokens
+    (4, 64, 77, 576),
+    (4, 16, 16, 960),     # the 4x4 site: d = 960
+    (4, 16, 77, 960),
+    (32, 77, 77, 64),     # BERT: 8 heads x batch 4
+    (3, 100, 512, 50),    # ragged q, the most keys, d % 4 != 0
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_smalls_kernel_matches_plain(cuda, bh, nq, nk, d, dtype):
+    q = _randn((bh, nq, d), 23, cuda, dtype)
+    k = _randn((bh, nk, d), 24, cuda, dtype)
+    v = _randn((bh, nk, d), 25, cuda, dtype)
+    scale = d ** -0.5
+    before = smalls_attention.launches
+    got = smalls_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert smalls_attention.launches == before + 1
+    want = attention_plain(q.float(), k.float(), v.float(), scale)
+    assert got.dtype == dtype and got.shape == want.shape
+    atol = 5e-5 + (0.0 if dtype == torch.float32
+                   else 2.0 ** -9 * v.float().abs().max().item())
+    ok, err = _within(got, want, atol, dtype)
+    assert ok, err
+
+
+def test_smalls_kernel_rejects_long_kv(cuda):
+    q = _randn((1, 8, 16), 0, cuda)
+    k = _randn((1, 513, 16), 1, cuda)
+    with pytest.raises(ValueError):
+        smalls_attention(q, k, k, 1.0)
+
+
+def _conv_inputs(shape, cout, cuda, dtype, seed=30):
+    cin = shape[1]
+    x = _randn(shape, seed, cuda, dtype)
+    w = (_randn((cout, cin, 3, 3), seed + 1, cuda) / (9 * cin) ** 0.5
+         ).to(dtype)
+    b = (0.1 * _randn((cout,), seed + 2, cuda)).to(dtype)
+    return x, w, b
+
+
+@pytest.mark.parametrize("shape,cout", [
+    ((4, 4, 32, 32), 192),      # pre_input_blocks: Cin = 4
+    ((4, 192, 32, 32), 4),      # UNet out head: Cout = 4
+    ((4, 384, 32, 32), 384),    # upsample conv
+    ((4, 1920, 4, 4), 960),     # H = W = 4, K = 17280
+    ((2, 128, 256, 256), 128),  # decoder 256^2
+    ((3, 6, 5, 7), 10),         # ragged everything
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_kernel_matches_plain(cuda, shape, cout, dtype):
+    x, w, b = _conv_inputs(shape, cout, cuda, dtype)
+    before = conv3x3.launches
+    got = conv3x3(x, w, b)
+    torch.cuda.synchronize()
+    assert conv3x3.launches == before + 1
+    want = conv3x3_plain(x.float(), w.float(), b.float())
+    assert got.dtype == dtype and got.shape == want.shape
+    ok, err = _within(got, want, 1e-4 * _rms(want), dtype)
+    assert ok, err
+
+
+@pytest.mark.parametrize("shape,cout,spade,groups", [
+    ((4, 192, 32, 32), 192, False, 32),   # stage 0 prologue, C/G = 6
+    ((4, 576, 32, 32), 192, True, 32),    # the heaviest prologue, stage 1
+    ((4, 1920, 4, 4), 960, True, 32),     # H = W = 4, Cin = 1920
+    ((2, 64, 5, 7), 20, True, 8),         # ragged: H*W % 4 != 0
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_norm_silu_kernel_matches_plain(cuda, shape, cout, spade,
+                                                groups, dtype):
+    x, w, b = _conv_inputs(shape, cout, cuda, dtype, seed=40)
+    x = x * 1.5 + 0.3
+    cin = shape[1]
+    nscale = 1.0 + 0.1 * _randn((cin,), 43, cuda)
+    nbias = 0.1 * _randn((cin,), 44, cuda)
+    gamma = beta = None
+    if spade:
+        gamma = (0.2 * _randn(shape, 45, cuda)).to(dtype)
+        beta = (0.2 * _randn(shape, 46, cuda)).to(dtype)
+    before = conv3x3_norm_silu.launches
+    got = conv3x3_norm_silu(x, w, b, nscale, nbias, groups, 1e-5, gamma,
+                            beta)
+    torch.cuda.synchronize()
+    assert conv3x3_norm_silu.launches == before + 1
+    up = (lambda t: None if t is None else t.float())
+    want = conv3x3_norm_silu_plain(x.float(), w.float(), b.float(), nscale,
+                                   nbias, groups, 1e-5, up(gamma), up(beta))
+    assert got.dtype == dtype and got.shape == want.shape
+    atol = (1e-4 if dtype == torch.float32 else 2.0 ** -6) * _rms(want)
+    ok, err = _within(got, want, atol, dtype)
+    assert ok, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_norm_silu_pads_after_the_prologue(cuda, dtype):
+    """A large beta makes prologue(0) far from 0: a halo tap must read 0,
+    so the border pixels differ from a conv of the padded prologue."""
+    shape = (2, 64, 8, 8)
+    x, w, b = _conv_inputs(shape, 32, cuda, dtype, seed=50)
+    nscale = torch.ones(64, device=cuda)
+    nbias = torch.zeros(64, device=cuda)
+    gamma = torch.zeros(shape, device=cuda, dtype=dtype)
+    beta = torch.full(shape, 3.0, device=cuda, dtype=dtype)
+    got = conv3x3_norm_silu(x, w, b, nscale, nbias, 32, 1e-5, gamma, beta)
+    want = conv3x3_norm_silu_plain(x.float(), w.float(), b.float(), nscale,
+                                   nbias, 32, 1e-5, gamma.float(),
+                                   beta.float())
+    atol = (1e-4 if dtype == torch.float32 else 2.0 ** -6) * _rms(want)
+    ok, err = _within(got, want, atol, dtype)
+    assert ok, err
+    # prologue(0) = silu(3) ~ 2.86: padding before it would move the border
+    xn = torch.nn.functional.silu(group_norm_plain(
+        x.float(), nscale, nbias, 32, 1e-5) + 3.0)
+    wrong = torch.nn.functional.conv2d(
+        torch.nn.functional.pad(xn, (1, 1, 1, 1), value=2.8577),
+        w.float(), b.float())
+    assert (got.float() - wrong).abs().max().item() > 0.1
+
+
+def test_new_kernels_backward_match_plain_autograd(cuda):
+    def grads(fn, inputs):
+        inputs = [t.detach().clone().requires_grad_() for t in inputs]
+        out = fn(*inputs)
+        return torch.autograd.grad((out ** 2).sum(), inputs)
+
+    def check(kernel, plain, inputs):
+        for a, r in zip(grads(kernel, inputs), grads(plain, inputs)):
+            assert (a - r).abs().max().item() <= 1e-4
+
+    x = _randn((2, 64, 8, 8), 60, cuda)
+    w = 1.0 + 0.1 * _randn((64,), 61, cuda)
+    b = 0.1 * _randn((64,), 62, cuda)
+    check(lambda *a: group_norm(*a, 32, 1e-6, True),
+          lambda *a: group_norm_plain(*a, 32, 1e-6, True), [x, w, b])
+    q, k, v = (_randn((2, 40, 32), s, cuda) for s in (63, 64, 65))
+    check(lambda *a: smalls_attention(*a, 0.2),
+          lambda *a: attention_plain(*a, 0.2), [q, k, v])
+    cx, cw, cb = _conv_inputs((2, 16, 8, 8), 24, cuda, torch.float32, 66)
+    check(conv3x3, conv3x3_plain, [cx, cw, cb])
+    g, bt = (0.2 * _randn((2, 16, 8, 8), s, cuda) for s in (70, 71))
+    ns, nb = 1.0 + 0.1 * _randn((16,), 72, cuda), 0.1 * _randn((16,), 73,
+                                                              cuda)
+    check(lambda *a: conv3x3_norm_silu(*a[:5], 8, 1e-5, *a[5:]),
+          lambda *a: conv3x3_norm_silu_plain(*a[:5], 8, 1e-5, *a[5:]),
+          [cx, cw, cb, ns, nb, g, bt])
