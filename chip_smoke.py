@@ -79,6 +79,7 @@ T2I = REPO / "configs" / "frido" / "t2i" / "frido_f16f8_coco.yaml"
 
 # Published peaks of one H100 SXM (dense, at the 700 W limit).
 PEAK_FP32_FLOPS = 67e12      # fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12     # tf32 tensor cores
 PEAK_BF16_FLOPS = 989e12     # bf16 tensor cores
 PEAK_BYTES = 3.35e12         # HBM3
 
@@ -102,24 +103,26 @@ GUIDANCE = 1.5
 DECODE_CHUNK = 32
 CTX_LEN = 77
 PROFILE_STEPS = 4   # a short chain under torch.profiler, for the breakdown
-# kernel phases at the shapes the main path gives the kernels at the
-# benchmark's decode chunk of 32: flash [32, 1024, 512], VQ N = 32*32*32
+# kernel phases at the shapes the main path gives the kernels: flash at
+# the benchmark's decode chunk of 32 ([32, 1024, 512], the row) and at this
+# script's batch of 4; VQ N = 32*32*32
 FLASH_SHAPE = (32, 1024, 512)
 VQ_N, VQ_K, VQ_D = 32 * 32 * 32, 8192, 4
 
 # Tolerances, fixed before the first run.
-# flash against the plain version in fp32 on the same inputs: 5e-5, plus
-# for bf16 2^-8 of the reference at each element (one rounding of the
-# kernel's fp32 result to bf16 costs at most half of that); as the card tests
-FLASH_ATOL = 5e-5
-FLASH_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -8}
+# Every kernel against its plain version in fp32 on the same (exactly
+# upcast) inputs, as the card tests; for bf16 each adds 2^-8 of the
+# reference at each element (one rounding of the kernel's fp32 result to
+# bf16 costs at most half of that).
+# Both attention kernels: 5e-5 (fp32 sums in another order; their fp32
+# products are 3xTF32, which drops only about 2^-22 of each), and in bf16
+# + 2^-9 max|v|: they round P to bf16 before P.V as the Pallas kernels do
+# (flash each key tile's un-normalised exp(s - m), smalls the normalised
+# row), which moves an output by at most that.
+ATTN_ATOL = 5e-5
 VQ_DIST_ATOL = 1e-5        # a kernel pick may differ only within a near tie
-# the kernels of the all-kernel configuration against their plain versions
-# in fp32 on the same (exactly upcast) inputs, as the card tests; for bf16
-# each adds 2^-8 of the reference at each element (one output rounding)
 BF16_RTOL = 2.0 ** -8
 GN_ATOL = 5e-5             # fp32 group sums in another order
-SMALLS_ATOL = 5e-5         # + 2^-9 max|v| in bf16: P rounded before P.V
 CONV_ATOL_RMS = 1e-4       # of the output's RMS: K <= 17280 fp32 terms
 # the fused prologue's output is rounded to bf16 before the conv: each of
 # the K terms carries up to 2^-9 of itself, ~0.6 * 2^-9 of the output RMS
@@ -205,36 +208,39 @@ def setup():
     return card
 
 
-def flash_phase(dtype):
+def flash_phase():
+    """The decode chunk's fp32 site gives the row; the main path's batch
+    of 4 and the kernel's bf16 form (off the main path) are checked and
+    timed too."""
     b, n, d = FLASH_SHAPE
-    q, k, v = (seeded(FLASH_SHAPE, s, dtype) for s in (10, 11, 12))
-    scale = d ** -0.5
-    got = flash_attention(q, k, v, scale)
-    torch.cuda.synchronize()
-    want = attention_plain(q.float(), k.float(), v.float(), scale)
-    diff = (got.float() - want).abs()
-    err = diff.max().item()
-    tol = f"{FLASH_ATOL} + {FLASH_RTOL[dtype]:.5f}*|plain|"
-    if not bool((diff <= FLASH_ATOL + FLASH_RTOL[dtype] * want.abs()).all()):
-        raise AssertionError(f"flash {dtype}: |kernel - plain| exceeds {tol} "
-                             f"(max {err})")
-    ms = cuda_ms(lambda: flash_attention(q, k, v, scale))
-    plain_ms = cuda_ms(lambda: attention_plain(q, k, v, scale))
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, scale=scale))
-    itemsize = torch.finfo(dtype).bits // 8
-    peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
-    bound_ms, bound_by = bound(4 * b * n * n * d, peak, 4 * b * n * d * itemsize)
-    row = dict(name="flash_attention", route="cuda",
-               source="frido_tpu_torch/csrc/flash_attention.cu",
-               replaces="frido_tpu/ops/pallas/attention.py:301",
-               launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-    log(f"flash_attention {dtype} q,k,v {list(FLASH_SHAPE)}: max_abs_err "
-        f"{err:.3e} (tol {tol}), output max "
-        f"{want.abs().max().item():.3e}, kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} "
-        f"ms ({bound_by})")
+    row = None
+    for shape, dtype in (((b, n, d), torch.float32),
+                         ((BATCH, n, d), torch.float32),
+                         ((b, n, d), torch.bfloat16)):
+        q, k, v = (seeded(shape, s, dtype) for s in (10, 11, 12))
+        scale = d ** -0.5
+        got = flash_attention(q, k, v, scale)
+        torch.cuda.synchronize()
+        want = attention_plain(q.float(), k.float(), v.float(), scale)
+        err, tol = check_close(f"flash {dtype} {list(shape)}", got, want,
+                               attn_atol(v, dtype), dtype)
+        ms = cuda_ms(lambda: flash_attention(q, k, v, scale))
+        plain_ms = cuda_ms(lambda: attention_plain(q, k, v, scale))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale))
+        itemsize = torch.finfo(dtype).bits // 8
+        bounded = matmul_bound(4 * shape[0] * n * n * d, dtype,
+                               4 * shape[0] * n * d * itemsize)
+        log(f"flash_attention {dtype} q,k,v {list(shape)}: max_abs_err "
+            f"{err:.3e} (tol {tol}), output max "
+            f"{want.abs().max().item():.3e}, kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
+            f"{describe_bound(bounded)}")
+        if row is None:
+            row = kernel_row("flash_attention",
+                             "frido_tpu_torch/csrc/flash_attention.cu",
+                             "frido_tpu/ops/pallas/attention.py:301", err, ms,
+                             plain_ms, bounded, library_ms)
     return row
 
 
@@ -297,13 +303,36 @@ def rms(t):
     return t.float().square().mean().sqrt().item()
 
 
-def peak_flops(dtype):
-    return PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+def matmul_bound(ops, dtype, nbytes):
+    """bound() for matmul-shaped work (attention, conv) in ``dtype``.
+
+    bf16: the operations at the bf16 tensor-core peak. fp32: 3xTF32 is the
+    fastest fp32-accurate route on this card (each product split into
+    tf32 hi + lo, three tf32 products: attention_mma.cuh), so 3 x the
+    operations at the TF32 peak, 2.5x lower than the operations at the
+    67 TFLOP/s fp32 CUDA-core rate. That older figure rides along as the
+    third element, so the log shows both."""
+    if dtype == torch.float32:
+        return bound(3 * ops, PEAK_TF32_FLOPS, nbytes) + (
+            ops / PEAK_FP32_FLOPS * 1e3,)
+    return bound(ops, PEAK_BF16_FLOPS, nbytes) + (None,)
+
+
+def describe_bound(bounded):
+    text = f"bound {bounded[0]:.4f} ms ({bounded[1]})"
+    if bounded[2] is not None:
+        text += f" [fp32 CUDA cores: {bounded[2]:.4f} ms]"
+    return text
+
+
+def attn_atol(v, dtype):
+    return ATTN_ATOL + (0.0 if dtype == torch.float32 else
+                        2.0 ** -9 * v.float().abs().max().item())
 
 
 def kernel_row(name, source, replaces, err, ms, plain_ms, bounded,
                library_ms):
-    bound_ms, bound_by = bounded
+    bound_ms, bound_by = bounded[:2]
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
@@ -356,7 +385,10 @@ def smalls_phase():
     sites = [  # (bh, nq, nk, d, dtype)
         (BATCH, 256, 256, 384, torch.bfloat16),   # self, 32^2 / 2
         (BATCH, 256, CTX_LEN, 384, torch.bfloat16),   # cross
+        (BATCH, 64, 64, 576, torch.bfloat16),     # self at 8x8, d = 576
+        (BATCH, 64, CTX_LEN, 576, torch.bfloat16),
         (BATCH, 16, 16, 960, torch.bfloat16),     # self at 4x4, d = 960
+        (BATCH, 16, CTX_LEN, 960, torch.bfloat16),
         (BATCH * 8, CTX_LEN, CTX_LEN, 64, torch.float32),   # BERT
     ]
     row = None
@@ -368,21 +400,19 @@ def smalls_phase():
         got = smalls_attention(q, k, v, scale)
         torch.cuda.synchronize()
         want = attention_plain(q.float(), k.float(), v.float(), scale)
-        atol = SMALLS_ATOL + (0.0 if dtype == torch.float32 else
-                              2.0 ** -9 * v.float().abs().max().item())
         err, tol = check_close(f"smalls_attention {dtype} {[bh, nq, nk, d]}",
-                               got, want, atol, dtype)
+                               got, want, attn_atol(v, dtype), dtype)
         ms = cuda_ms(lambda: smalls_attention(q, k, v, scale))
         plain_ms = cuda_ms(lambda: attention_plain(q, k, v, scale))
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, scale=scale))
         itemsize = torch.finfo(dtype).bits // 8
-        bounded = bound(4 * bh * nq * nk * d, peak_flops(dtype),
-                        (2 * nq + 2 * nk) * bh * d * itemsize)
+        bounded = matmul_bound(4 * bh * nq * nk * d, dtype,
+                               (2 * nq + 2 * nk) * bh * d * itemsize)
         log(f"smalls_attention {dtype} bh {bh} nq {nq} nk {nk} d {d}: "
             f"max_abs_err {err:.3e} (tol {tol}), kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-            f"{bounded[0]:.4f} ms ({bounded[1]})")
+            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
+            f"{describe_bound(bounded)}")
         if row is None:
             row = kernel_row("smalls_attention",
                              "frido_tpu_torch/csrc/smalls_attention.cu",
@@ -428,12 +458,12 @@ def conv3x3_phase():
         library_ms = cuda_ms(lambda: F.conv2d(x, w, b, 1, 1))
         n, cin, h, wd = shape
         itemsize = torch.finfo(dtype).bits // 8
-        bounded = bound(2 * n * h * wd * cout * 9 * cin, peak_flops(dtype),
-                        conv_bytes(shape, cout, itemsize))
+        bounded = matmul_bound(2 * n * h * wd * cout * 9 * cin, dtype,
+                               conv_bytes(shape, cout, itemsize))
         log(f"conv3x3 {dtype} x {list(shape)} -> {cout}: max_abs_err "
             f"{err:.3e} (tol {tol}), kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, F.conv2d {library_ms:.4f} ms, bound "
-            f"{bounded[0]:.4f} ms ({bounded[1]})")
+            f"{plain_ms:.4f} ms, F.conv2d {library_ms:.4f} ms, "
+            f"{describe_bound(bounded)}")
         if row is None:
             row = kernel_row("conv3x3", "frido_tpu_torch/csrc/conv3x3.cu",
                              "frido_tpu/ops/pallas/conv_pallas.py:177", err,
@@ -799,8 +829,7 @@ def profile_phase(model, label):
 
 def main():
     card = setup()
-    rows = [flash_phase(torch.float32), vq_phase()]
-    flash_phase(torch.bfloat16)   # the kernel's bf16 form; off the main path
+    rows = [flash_phase(), vq_phase()]
     rows += [group_norm_phase(), smalls_phase(), conv3x3_norm_silu_phase(),
              conv3x3_phase()]
     toy_phase("default")

@@ -13,9 +13,12 @@ compute in fp32 and round their output to bf16 once, which costs at most
 half of that. The absolute parts:
 
 - flash, group_norm, smalls_attention: 5e-5 (fp32 sums taken in another
-  order). smalls_attention in bf16 also rounds the probabilities to bf16
-  before P.V, which moves an output by at most 2^-9 * max|v|, added to its
-  tolerance.
+  order; the attention kernels' fp32 products are 3xTF32 on the tensor
+  cores, which drops only about 2^-22 of each product). Both attention
+  kernels in bf16 also round the probabilities to bf16 before P.V, as the
+  Pallas kernels do (flash each key tile's un-normalised exp(s - m), smalls
+  the normalised row), which moves an output by at most 2^-9 * max|v|,
+  added to their tolerance.
 - conv3x3 and conv3x3_norm_silu: 1e-4 of the output's RMS (fp32 sums over
   K = 9 * Cin <= 17280 terms in another order). conv3x3_norm_silu in bf16
   rounds the prologue's output to bf16 before the conv; each of the K
@@ -76,9 +79,72 @@ def test_flash_kernel_matches_plain(cuda, bh, nq, nk, d, dtype):
     assert flash_attention.launches == before + 1
     want = attention_plain(q.float(), k.float(), v.float(), scale)
     assert got.dtype == dtype and got.shape == want.shape
-    rtol = 0.0 if dtype == torch.float32 else 2.0 ** -8
-    err = (got.float() - want).abs()
-    assert bool((err <= 5e-5 + rtol * want.abs()).all()), err.max().item()
+    ok, err = _within(got, want, _attn_atol(v, dtype), dtype)
+    assert ok, err
+
+
+def _attn_atol(v, dtype):
+    """5e-5, + 2^-9 max|v| in bf16: P is rounded to bf16 before P.V."""
+    return 5e-5 + (0.0 if dtype == torch.float32
+                   else 2.0 ** -9 * v.float().abs().max().item())
+
+
+def _attn_case(kernel, q, k, v, scale):
+    """Launch once, check the count, shape and finiteness; compare."""
+    before = kernel.launches
+    got = kernel(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = attention_plain(q.float(), k.float(), v.float(), scale)
+    assert got.dtype == q.dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got.float()).all())
+    return _within(got, want, _attn_atol(v, q.dtype), q.dtype)
+
+
+def _qkv(bh, nq, nk, d, dtype, device, seed=80):
+    return (_randn((bh, n, d), seed + i, device, dtype)
+            for i, n in enumerate((nq, nk, nk)))
+
+
+@pytest.mark.parametrize("nq", [1, 15, 17])
+@pytest.mark.parametrize("nk", [31, 33, 513])
+@pytest.mark.parametrize("d", [8, 60])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_ragged_tile_edges(cuda, nq, nk, d, dtype):
+    """nq and nk one short of and one past the 16/32-row tiles; d short of
+    the mma depth (8 tf32, 16 bf16) and not a multiple of 16."""
+    q, k, v = _qkv(2, nq, nk, d, dtype, cuda)
+    ok, err = _attn_case(flash_attention, q, k, v, d ** -0.5)
+    assert ok, err
+
+
+@pytest.mark.parametrize("nq", [1, 15, 17])
+@pytest.mark.parametrize("nk", [31, 33])
+@pytest.mark.parametrize("d", [8, 60, 576, 960])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_smalls_kernel_ragged_tile_edges(cuda, nq, nk, d, dtype):
+    q, k, v = _qkv(2, nq, nk, d, dtype, cuda)
+    ok, err = _attn_case(smalls_attention, q, k, v, d ** -0.5)
+    assert ok, err
+
+
+@pytest.mark.parametrize("kernel", [flash_attention, smalls_attention],
+                         ids=["flash", "smalls"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_large_scores_stay_finite(cuda, kernel, dtype):
+    """Scores of 100 +- 15, where exp(s) overflows fp32: the kernels must
+    subtract the row max. q and k are small integers with a common offset
+    of 20 in one column and the scale is 1/4, so every score is exact in
+    fp32, tf32 and bf16 alike and the comparison sees only the softmax."""
+    rng = np.random.default_rng(90)
+    qk = rng.integers(-4, 5, (2, 2, 140, 64)).astype(np.float32)
+    qk[:, :, :, 0] = 20.0
+    q, k = (torch.from_numpy(a).to(cuda, dtype) for a in qk)
+    v = _randn((2, 140, 64), 91, cuda, dtype)
+    s = (q[:, :, None].float() * k.float()[:, None]).sum(-1) / 4
+    assert s.max().item() > 90 and s.min().item() > 20
+    ok, err = _attn_case(kernel, q, k, v, 0.25)
+    assert ok, err
 
 
 def test_flash_kernel_4d_layout_and_backward(cuda):
