@@ -71,7 +71,8 @@ from frido_tpu_torch.ops.cuda import build  # noqa: E402
 from frido_tpu_torch.ops.cuda.attention import (  # noqa: E402
     attention_plain, flash_attention, smalls_attention)
 from frido_tpu_torch.ops.cuda.conv import (  # noqa: E402
-    conv3x3, conv3x3_norm_silu, conv3x3_norm_silu_plain, conv3x3_plain)
+    conv3x3, conv3x3_norm_silu, conv3x3_norm_silu_plain, conv3x3_plain,
+    conv_plan)
 from frido_tpu_torch.ops.cuda.norm import group_norm, group_norm_plain  # noqa: E402,E501
 from frido_tpu_torch.ops.cuda.vq import vq_argmin, vq_argmin_plain  # noqa: E402,E501
 
@@ -437,11 +438,14 @@ def conv_bytes(shape, cout, itemsize):
 
 def conv3x3_phase():
     """The heaviest site, the decoder's 256^2 fp32 conv, gives the row; the
-    UNet's bf16 sites with Cin = 4 and Cout = 4 and the heaviest one are
-    checked too. The library call is F.conv2d (cuDNN, TF32 off)."""
+    UNet's bf16 sites with Cin = 4 and Cout = 4 and its three upsample
+    convs are checked too. The library call is F.conv2d (cuDNN, TF32
+    off)."""
     sites = [  # (shape, cout, dtype)
         ((BATCH, 128, 256, 256), 128, torch.float32),   # decoder
-        ((BATCH, 384, 32, 32), 384, torch.bfloat16),    # upsample conv
+        ((BATCH, 384, 32, 32), 384, torch.bfloat16),    # upsample conv, 32^2
+        ((BATCH, 576, 16, 16), 576, torch.bfloat16),    # upsample conv, 16^2
+        ((BATCH, 960, 8, 8), 960, torch.bfloat16),      # upsample conv, 8^2
         ((BATCH, 4, 32, 32), 192, torch.bfloat16),      # pre_input
         ((BATCH, 192, 32, 32), 4, torch.bfloat16),      # out head
     ]
@@ -463,7 +467,7 @@ def conv3x3_phase():
         log(f"conv3x3 {dtype} x {list(shape)} -> {cout}: max_abs_err "
             f"{err:.3e} (tol {tol}), kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, F.conv2d {library_ms:.4f} ms, "
-            f"{describe_bound(bounded)}")
+            f"{describe_bound(bounded)}; plan {conv_plan_of(x, cout)}")
         if row is None:
             row = kernel_row("conv3x3", "frido_tpu_torch/csrc/conv3x3.cu",
                              "frido_tpu/ops/pallas/conv_pallas.py:177", err,
@@ -471,25 +475,44 @@ def conv3x3_phase():
     return row
 
 
+def conv_plan_of(x, cout, fused=False, spade=False):
+    """The kernel's host plan for x -> cout, as printed beside its time."""
+    p = conv_plan(*x.shape, cout, x.element_size(), fused, spade)
+    return (f"grid {list(p.grid)}, {32 * p.nt}-pixel tile, split "
+            f"{p.split}, {p.smem} B shared")
+
+
+def fused_operands(shape, cout, spade, seed):
+    """x, weight, bias, the norm affine and (with SPADE) the tables."""
+    dtype = torch.bfloat16
+    x, w, b = conv_operands(shape, cout, dtype, seed)
+    cin = shape[1]
+    ns = 1.0 + 0.1 * seeded((cin,), seed + 3)
+    nb = 0.1 * seeded((cin,), seed + 4)
+    g = bt = None
+    if spade:
+        g = (0.2 * seeded(shape, seed + 5)).to(dtype)
+        bt = (0.2 * seeded(shape, seed + 6)).to(dtype)
+    return x, w, b, ns, nb, g, bt
+
+
 def conv3x3_norm_silu_phase():
     """The heaviest prologue, [4, 576, 32, 32] -> 192 with SPADE (stage 1),
-    gives the row; the deepest one without SPADE (stage 0) is checked too.
-    No single library call computes the fused op: library_ms is null."""
+    gives the row; the heaviest one at each other resolution of the UNet
+    is checked and timed too. No single library call computes the fused
+    op: library_ms is null; F.conv2d of the conv alone (no prologue) on the
+    same shape is printed beside each."""
     sites = [  # (shape, cout, spade)
         ((BATCH, 576, 32, 32), 192, True),
+        ((BATCH, 960, 16, 16), 384, True),
+        ((BATCH, 1536, 8, 8), 576, True),
+        ((BATCH, 1920, 4, 4), 960, True),
         ((BATCH, 1920, 4, 4), 960, False),
     ]
     dtype = torch.bfloat16
     row = None
     for shape, cout, spade in sites:
-        x, w, b = conv_operands(shape, cout, dtype, 60)
-        cin = shape[1]
-        ns = 1.0 + 0.1 * seeded((cin,), 63)
-        nb = 0.1 * seeded((cin,), 64)
-        g = bt = None
-        if spade:
-            g = (0.2 * seeded(shape, 65)).to(dtype)
-            bt = (0.2 * seeded(shape, 66)).to(dtype)
+        x, w, b, ns, nb, g, bt = fused_operands(shape, cout, spade, 60)
         args = (x, w, b, ns, nb, 32, 1e-5, g, bt)
         got = conv3x3_norm_silu(*args)
         torch.cuda.synchronize()
@@ -501,24 +524,87 @@ def conv3x3_norm_silu_phase():
             FUSED_BF16_ATOL_RMS * rms(want), dtype)
         ms = cuda_ms(lambda: conv3x3_norm_silu(*args))
         plain_ms = cuda_ms(lambda: conv3x3_norm_silu_plain(*args))
-        n, _, h, wd = shape
+        alone_ms = cuda_ms(lambda: F.conv2d(x, w, b, 1, 1))
+        n, cin, h, wd = shape
         itemsize = torch.finfo(dtype).bits // 8
         # the conv's products, and per input element 3 for the statistics,
         # 2 for the affine, 2 for SPADE and 3 for the SiLU
-        ops = 2 * n * h * wd * cout * 9 * cin + (10 if spade else 8) * x.numel()
+        ops = (2 * n * h * wd * cout * 9 * cin
+               + (10 if spade else 8) * x.numel())
         nbytes = conv_bytes(shape, cout, itemsize) + 8 * cin + (
             2 * x.numel() * itemsize if spade else 0)
         bounded = bound(ops, PEAK_BF16_FLOPS, nbytes)
+        split = conv_plan(*shape, cout, itemsize, True, spade).split > 1
+        launches = "statistics, pack, conv" + (", reduce" if split else "")
         log(f"conv3x3_norm_silu {dtype} x {list(shape)} -> {cout} spade "
             f"{spade}: max_abs_err {err:.3e} (tol {tol}), kernel {ms:.4f} ms "
-            f"(2 launches), plain {plain_ms:.4f} ms, no library call, bound "
-            f"{bounded[0]:.4f} ms ({bounded[1]})")
+            f"(one call: {launches}), "
+            f"plain {plain_ms:.4f} ms, no library call (conv alone, no "
+            f"prologue: F.conv2d {alone_ms:.4f} ms), bound {bounded[0]:.4f} "
+            f"ms ({bounded[1]}); plan {conv_plan_of(x, cout, True, spade)}")
         if row is None:
             row = kernel_row("conv3x3_norm_silu",
                              "frido_tpu_torch/csrc/conv3x3.cu",
                              "frido_tpu/ops/pallas/conv_pallas.py:376", err,
                              ms, plain_ms, bounded, None)
     return row
+
+
+def unet_conv_sites(model):
+    """Every 3x3 conv of one all-kernel UNet call (stage 1, batch 4), as
+    the model makes them: {(shape, cout, fused, spade): count}."""
+    sites = {}
+
+    def hook(mod, args, kwargs, out):
+        fused = kwargs.get("fused_norm")
+        key = (tuple(args[0].shape), mod.weight.shape[0], fused is not None,
+               fused is not None and fused.get("gamma") is not None)
+        sites[key] = sites.get(key, 0) + 1
+
+    unet = model.model.diffusion_model
+    x = seeded((BATCH, 32, 32, 8), 31, torch.bfloat16)
+    t = torch.full((BATCH,), 500, device="cuda")
+    with torch.no_grad(), all_kernels():
+        ctx = model.get_learned_conditioning(
+            np.zeros((BATCH, CTX_LEN), np.int64)).to(torch.bfloat16)
+        tables = model.spade_tables(x[..., :4], 1)   # once per stage
+        handles = [m.register_forward_hook(hook, with_kwargs=True)
+                   for m in unet.modules()
+                   if isinstance(m, Conv2d) and m.is_3x3_same]
+        try:
+            model.apply_model(x, t, ctx, 1, tables)
+        finally:
+            for h in handles:
+                h.remove()
+    return sites
+
+
+def unet_conv_sum_phase(model):
+    """The kernels' time summed over one UNet call's conv sites against
+    F.conv2d's on the same shapes (the fused sites' F.conv2d without the
+    prologue: cuDNN has no such call)."""
+    sites = unet_conv_sites(model)
+    calls = sum(sites.values())
+    want = 2 * T2I_ARCH["res_blocks"] + 1 + T2I_ARCH["upsamples"] + 1
+    if calls != want:
+        raise AssertionError(f"one UNet call ran {calls} 3x3 convs, "
+                             f"expected {want}: {sites}")
+    kernel = library = 0.0
+    for (shape, cout, fused, spade), count in sorted(sites.items()):
+        if fused:
+            x, w, b, ns, nb, g, bt = fused_operands(shape, cout, spade, 70)
+            ms = cuda_ms(lambda: conv3x3_norm_silu(x, w, b, ns, nb, 32, 1e-5,
+                                                   g, bt))
+        else:
+            x, w, b = conv_operands(shape, cout, torch.bfloat16, 70)
+            ms = cuda_ms(lambda: conv3x3(x, w, b))
+        lib = cuda_ms(lambda: F.conv2d(x, w, b, 1, 1))
+        kernel += count * ms
+        library += count * lib
+    log(f"UNet call's {calls} conv sites ({len(sites)} distinct; batch "
+        f"{BATCH}, bf16, stage 1): kernels {kernel:.3f} ms in all, F.conv2d "
+        f"{library:.3f} ms (the 44 fused sites' F.conv2d without the "
+        f"prologue), ratio {kernel / library:.2f}")
 
 
 # ---------------------------------------------------------------------------
@@ -839,6 +925,7 @@ def main():
         raise AssertionError(f"toy all-kernel run launched {toy}")
 
     model = build_main_model()
+    unet_conv_sum_phase(model)
     default = main_path_phase(card, model, "default", STEPS)
     with all_kernels():
         opt_in = main_path_phase(card, model, "all-kernel", ALL_KERNEL_STEPS)

@@ -396,3 +396,127 @@ def test_new_kernels_backward_match_plain_autograd(cuda):
     check(lambda *a: conv3x3_norm_silu(*a[:5], 8, 1e-5, *a[5:]),
           lambda *a: conv3x3_norm_silu_plain(*a[:5], 8, 1e-5, *a[5:]),
           [cx, cw, cb, ns, nb, g, bt])
+
+
+def _fused_case(shape, cout, spade, groups, dtype, device, seed=40,
+                magnitude=1.0):
+    """One fused call against its plain version: (ok, max error, output)."""
+    x, w, b = _conv_inputs(shape, cout, device, dtype, seed=seed)
+    x = (x.float() * 1.5 * magnitude + 0.3).to(dtype)
+    cin = shape[1]
+    nscale = 1.0 + 0.1 * _randn((cin,), seed + 3, device)
+    nbias = 0.1 * _randn((cin,), seed + 4, device)
+    gamma = beta = None
+    if spade:
+        gamma = (0.2 * _randn(shape, seed + 5, device)).to(dtype)
+        beta = (0.2 * _randn(shape, seed + 6, device)).to(dtype)
+    before = conv3x3_norm_silu.launches
+    got = conv3x3_norm_silu(x, w, b, nscale, nbias, groups, 1e-5, gamma, beta)
+    torch.cuda.synchronize()
+    assert conv3x3_norm_silu.launches == before + 1
+    up = (lambda t: None if t is None else t.float())
+    want = conv3x3_norm_silu_plain(x.float(), w.float(), b.float(), nscale,
+                                   nbias, groups, 1e-5, up(gamma), up(beta))
+    assert got.dtype == dtype and got.shape == want.shape
+    atol = (1e-4 if dtype == torch.float32 else 2.0 ** -6) * _rms(want)
+    ok, err = _within(got, want, atol, dtype)
+    return ok, err, got
+
+
+@pytest.mark.parametrize("shape,cout,spade", [
+    ((4, 960, 16, 16), 384, True),     # 16^2, the heaviest Cin there
+    ((4, 1536, 8, 8), 576, True),      # 8^2: split K over 4
+    ((4, 1920, 4, 4), 960, False),     # 4^2 without SPADE: split K over 9
+    ((4, 576, 4, 4), 960, True),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_norm_silu_kernel_at_each_resolution(cuda, shape, cout,
+                                                     spade, dtype):
+    ok, err, _ = _fused_case(shape, cout, spade, 32, dtype, cuda)
+    assert ok, err
+
+
+def _conv_case(x, w, b):
+    before = conv3x3.launches
+    got = conv3x3(x, w, b)
+    torch.cuda.synchronize()
+    assert conv3x3.launches == before + 1
+    want = conv3x3_plain(x.float(), w.float(), b.float())
+    assert got.dtype == x.dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got.float()).all())
+    return _within(got, want, 1e-4 * _rms(want), x.dtype)
+
+
+@pytest.mark.parametrize("shape,cout", [
+    ((4, 960, 8, 8), 960),      # upsample conv at 8^2: split K over 3
+    ((4, 576, 16, 16), 576),    # upsample conv at 16^2
+    ((4, 192, 4, 4), 128),      # a SPADE table conv at 4^2
+    ((1, 1, 1, 1), 1),          # 1x1 image, Cin = Cout = 1
+    ((1, 20, 3, 65), 10),       # W = 65: a one-column tail tile
+    ((2, 6, 3, 65), 1),         # Cin = 6, Cout = 1
+    ((1, 1, 9, 9), 10),         # Cin = 1
+    ((3, 20, 1, 1), 10),        # several 1x1 images in one tile
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_kernel_split_k_and_ragged_edges(cuda, shape, cout, dtype):
+    ok, err = _conv_case(*_conv_inputs(shape, cout, cuda, dtype, seed=70))
+    assert ok, err
+
+
+@pytest.mark.parametrize("shape,cout,groups", [
+    ((1, 20, 3, 65), 10, 4),
+    ((1, 6, 1, 1), 1, 2),
+    ((2, 1, 5, 7), 10, 1),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_norm_silu_kernel_ragged_edges(cuda, shape, cout, groups,
+                                               dtype):
+    ok, err, _ = _fused_case(shape, cout, True, groups, dtype, cuda)
+    assert ok, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_kernels_take_unaligned_views(cuda, dtype):
+    """x, weight and bias as views one element into their storage (not 16
+    bytes aligned): the wrapper hands the kernel aligned copies."""
+    x, w, b = _conv_inputs((2, 16, 8, 8), 24, cuda, dtype, seed=75)
+    xs = torch.empty(x.numel() + 1, device=cuda, dtype=dtype)
+    xs[1:] = x.reshape(-1)
+    ws = torch.empty(w.numel() + 1, device=cuda, dtype=dtype)
+    ws[1:] = w.reshape(-1)
+    bs = torch.empty(b.numel() + 1, device=cuda, dtype=dtype)
+    bs[1:] = b
+    xv, wv, bv = xs[1:].view(x.shape), ws[1:].view(w.shape), bs[1:]
+    assert xv.data_ptr() % 16 and wv.data_ptr() % 16
+    ok, err = _conv_case(xv, wv, bv)
+    assert ok, err
+    got = conv3x3_norm_silu(xv, wv, bv, torch.ones(16, device=cuda),
+                            torch.zeros(16, device=cuda), 4, 1e-5)
+    want = conv3x3_norm_silu_plain(x.float(), w.float(), b.float(),
+                                   torch.ones(16, device=cuda),
+                                   torch.zeros(16, device=cuda), 4, 1e-5)
+    atol = (1e-4 if dtype == torch.float32 else 2.0 ** -6) * _rms(want)
+    ok, err = _within(got, want, atol, dtype)
+    assert ok, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_kernels_large_inputs(cuda, dtype):
+    """Inputs of magnitude about 100: the same relative tolerances hold."""
+    x, w, b = _conv_inputs((2, 64, 16, 16), 48, cuda, dtype, seed=80)
+    ok, err = _conv_case((x.float() * 100).to(dtype), w, b)
+    assert ok, err
+    ok, err, _ = _fused_case((2, 64, 16, 16), 48, True, 32, dtype, cuda,
+                             magnitude=100.0)
+    assert ok, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_kernels_are_deterministic(cuda, dtype):
+    """Two calls on the same inputs give the same bits, split K included
+    ([4, 1920, 4, 4] -> 960 splits K 9 ways)."""
+    x, w, b = _conv_inputs((4, 960, 8, 8), 960, cuda, dtype, seed=85)
+    assert torch.equal(conv3x3(x, w, b), conv3x3(x, w, b))
+    _, _, one = _fused_case((4, 1920, 4, 4), 960, False, 32, dtype, cuda)
+    _, _, two = _fused_case((4, 1920, 4, 4), 960, False, 32, dtype, cuda)
+    assert torch.equal(one, two)
