@@ -73,8 +73,11 @@ from frido_tpu_torch.ops.cuda.attention import (  # noqa: E402
 from frido_tpu_torch.ops.cuda.conv import (  # noqa: E402
     conv3x3, conv3x3_norm_silu, conv3x3_norm_silu_plain, conv3x3_plain,
     conv_plan)
-from frido_tpu_torch.ops.cuda.norm import group_norm, group_norm_plain  # noqa: E402,E501
-from frido_tpu_torch.ops.cuda.vq import vq_argmin, vq_argmin_plain  # noqa: E402,E501
+from frido_tpu_torch.ops.cuda.norm import (  # noqa: E402
+    group_norm, group_norm_plain, group_norm_plan)
+from frido_tpu_torch.ops.cuda.vq import (  # noqa: E402
+    vq_argmin, vq_argmin_plain, vq_plan)
+from frido_tpu_torch.tools.attention_ab import graph_ms  # noqa: E402
 
 T2I = REPO / "configs" / "frido" / "t2i" / "frido_f16f8_coco.yaml"
 
@@ -106,9 +109,10 @@ CTX_LEN = 77
 PROFILE_STEPS = 4   # a short chain under torch.profiler, for the breakdown
 # kernel phases at the shapes the main path gives the kernels: flash at
 # the benchmark's decode chunk of 32 ([32, 1024, 512], the row) and at this
-# script's batch of 4; VQ N = 32*32*32
+# script's batch of 4; VQ at this script's batch of 4 (N = 4*32*32, the
+# row: both codebooks see a 32^2 latent grid) and at the decode chunk of 32
 FLASH_SHAPE = (32, 1024, 512)
-VQ_N, VQ_K, VQ_D = 32 * 32 * 32, 8192, 4
+VQ_NS, VQ_K, VQ_D = (BATCH * 32 * 32, 32 * 32 * 32), 8192, 4
 
 # Tolerances, fixed before the first run.
 # Every kernel against its plain version in fp32 on the same (exactly
@@ -246,44 +250,55 @@ def flash_phase():
 
 
 def vq_phase():
-    z = seeded((VQ_N, VQ_D), 20)
-    e = seeded((VQ_K, VQ_D), 21)
-    got = vq_argmin(z, e)
-    torch.cuda.synchronize()
-    want = vq_argmin_plain(z, e)
-    # error: how much farther the kernel's pick is than the plain pick, by
-    # the kernel's own distance, in float64
-    z64, e64 = z.double(), e.double()
-    esq = (e64 * e64).sum(1)
+    """The main path's N = 4 * 32 * 32 gives the row; the decode chunk's
+    N = 32 * 32 * 32 is checked and timed too. Device: a replayed CUDA
+    graph of 20 calls."""
+    row = None
+    for n in VQ_NS:
+        z = seeded((n, VQ_D), 20)
+        e = seeded((VQ_K, VQ_D), 21)
+        got = vq_argmin(z, e)
+        torch.cuda.synchronize()
+        want = vq_argmin_plain(z, e)
+        # error: how much farther the kernel's pick is than the plain pick,
+        # by the kernel's own distance, in float64
+        z64, e64 = z.double(), e.double()
+        esq = (e64 * e64).sum(1)
 
-    def dist(idx):
-        sel = e64[idx.long()]
-        return esq[idx.long()] - 2 * (z64 * sel).sum(1)
+        def dist(idx):
+            sel = e64[idx.long()]
+            return esq[idx.long()] - 2 * (z64 * sel).sum(1)
 
-    err = (dist(got) - dist(want)).abs().max().item()
-    if got.dtype != torch.int32 or got.shape != (VQ_N,):
-        raise AssertionError(f"vq_argmin gave {got.dtype} {tuple(got.shape)}")
-    if not err <= VQ_DIST_ATOL:
-        raise AssertionError(f"vq_argmin: distance of kernel pick vs plain "
-                             f"pick differs by {err} > {VQ_DIST_ATOL}")
-    ms = cuda_ms(lambda: vq_argmin(z, e))
-    plain_ms = cuda_ms(lambda: vq_argmin_plain(z, e))
-    library_ms = cuda_ms(lambda: torch.cdist(z, e).argmin(dim=1))
-    # per (row, code): D multiply-adds and one compare; |e|^2 once per code
-    ops = VQ_N * VQ_K * (2 * VQ_D + 1) + VQ_K * 2 * VQ_D
-    nbytes = 4 * (VQ_N * VQ_D + VQ_K * VQ_D + VQ_N)
-    bound_ms, bound_by = bound(ops, PEAK_FP32_FLOPS, nbytes)
-    same = (got == want).float().mean().item()
-    row = dict(name="vq_argmin", route="cuda",
-               source="frido_tpu_torch/csrc/vq_argmin.cu",
-               replaces="frido_tpu/ops/pallas/vq_pallas.py:74",
-               launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-    log(f"vq_argmin z [{VQ_N}, {VQ_D}] codebook [{VQ_K}, {VQ_D}]: same index "
-        f"{same:.6f} of rows, max distance gap {err:.3e} (tol "
-        f"{VQ_DIST_ATOL}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"cdist+argmin {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by})")
+        err = (dist(got) - dist(want)).abs().max().item()
+        if got.dtype != torch.int32 or got.shape != (n,):
+            raise AssertionError(f"vq_argmin gave {got.dtype} "
+                                 f"{tuple(got.shape)}")
+        if not err <= VQ_DIST_ATOL:
+            raise AssertionError(f"vq_argmin N {n}: distance of kernel pick "
+                                 f"vs plain pick differs by {err} > "
+                                 f"{VQ_DIST_ATOL}")
+        ms = cuda_ms(lambda: vq_argmin(z, e))
+        device_ms = graph_ms(lambda: vq_argmin(z, e))
+        plain_ms = cuda_ms(lambda: vq_argmin_plain(z, e))
+        library_ms = cuda_ms(lambda: torch.cdist(z, e).argmin(dim=1))
+        # per (row, code): D multiply-adds and one compare; |e|^2 once per
+        # code
+        ops = n * VQ_K * (2 * VQ_D + 1) + VQ_K * 2 * VQ_D
+        nbytes = 4 * (n * VQ_D + VQ_K * VQ_D + n)
+        bounded = bound(ops, PEAK_FP32_FLOPS, nbytes)
+        same = (got == want).float().mean().item()
+        p = vq_plan(n, VQ_K, VQ_D)
+        log(f"vq_argmin z [{n}, {VQ_D}] codebook [{VQ_K}, {VQ_D}]: same "
+            f"index {same:.6f} of rows, max distance gap {err:.3e} (tol "
+            f"{VQ_DIST_ATOL}), kernel {ms:.4f} ms (device {device_ms:.4f}), "
+            f"plain {plain_ms:.4f} ms, cdist+argmin {library_ms:.4f} ms, "
+            f"bound {bounded[0]:.4f} ms ({bounded[1]}); plan {p.grid} CTAs "
+            f"of {p.warps} warps in clusters of {p.cluster}, {32 * p.rows} "
+            f"rows a CTA, {p.ks} codes a part")
+        if row is None:
+            row = kernel_row("vq_argmin", "frido_tpu_torch/csrc/vq_argmin.cu",
+                             "frido_tpu/ops/pallas/vq_pallas.py:74", err, ms,
+                             plain_ms, bounded, library_ms)
     return row
 
 
@@ -341,12 +356,20 @@ def kernel_row(name, source, replaces, err, ms, plain_ms, bounded,
 
 def group_norm_phase():
     """The heaviest site, the decoder's 256^2 fp32 norms (+SiLU), gives the
-    row; the UNet's sites are checked too. The library call is
-    F.group_norm, which has no SiLU: it times less work than the kernel."""
+    row; every other GroupNorm site of the main path (the decoder's fp32
+    ones, the UNet's bf16 ones) is checked and timed too. The library call
+    is F.group_norm, which has no SiLU: it times less work than the
+    kernel. Device: a replayed CUDA graph of 20 calls."""
     sites = [  # (shape, dtype, eps, silu)
         ((BATCH, 128, 256, 256), torch.float32, 1e-6, True),   # decoder
+        ((BATCH, 512, 32, 32), torch.float32, 1e-6, True),
+        ((BATCH, 512, 64, 64), torch.float32, 1e-6, True),
+        ((BATCH, 256, 64, 64), torch.float32, 1e-6, True),
+        ((BATCH, 256, 128, 128), torch.float32, 1e-6, True),
+        ((BATCH, 128, 128, 128), torch.float32, 1e-6, True),
         ((BATCH, 192, 32, 32), torch.bfloat16, 1e-5, True),    # out head
-        ((BATCH, 384, 16, 16), torch.bfloat16, 1e-6, False),   # ST norm
+        ((BATCH, 384, 16, 16), torch.bfloat16, 1e-6, False),   # ST norms
+        ((BATCH, 576, 8, 8), torch.bfloat16, 1e-6, False),
         ((BATCH, 960, 4, 4), torch.bfloat16, 1e-6, False),
     ]
     row = None
@@ -361,18 +384,26 @@ def group_norm_phase():
         err, tol = check_close(f"group_norm {dtype} {list(shape)}", got, want,
                                GN_ATOL, dtype)
         ms = cuda_ms(lambda: group_norm(x, w, b, 32, eps, silu))
+        device_ms = graph_ms(lambda: group_norm(x, w, b, 32, eps, silu))
         plain_ms = cuda_ms(lambda: group_norm_plain(x, w, b, 32, eps, silu))
         wl, bl = w.to(dtype), b.to(dtype)
         library_ms = cuda_ms(lambda: F.group_norm(x, 32, wl, bl, eps))
+        library_device_ms = graph_ms(lambda: F.group_norm(x, 32, wl, bl, eps))
         n = x.numel()
         itemsize = torch.finfo(dtype).bits // 8
         # per element: 3 for the sums, 2 for the affine, 3 for the SiLU
         bounded = bound((8 if silu else 5) * n, PEAK_FP32_FLOPS,
                         2 * n * itemsize + 8 * c)
+        p = group_norm_plan(shape[0], c, 32, shape[2] * shape[3], itemsize)
+        path = (f"one CTA of {p.threads} threads per run, in registers"
+                if p.vpt else f"clusters of {p.cluster} CTAs, {p.slice}-"
+                f"element slices in shared memory" if p.cluster
+                else "streamed twice")
         log(f"group_norm {dtype} x {list(shape)} eps {eps} silu {silu}: "
-            f"max_abs_err {err:.3e} (tol {tol}), kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, F.group_norm (no SiLU) {library_ms:.4f} ms, "
-            f"bound {bounded[0]:.4f} ms ({bounded[1]})")
+            f"max_abs_err {err:.3e} (tol {tol}), kernel {ms:.4f} ms (device "
+            f"{device_ms:.4f}), plain {plain_ms:.4f} ms, F.group_norm (no "
+            f"SiLU) {library_ms:.4f} ms (device {library_device_ms:.4f}), "
+            f"bound {bounded[0]:.4f} ms ({bounded[1]}); plan: {path}")
         if row is None:
             row = kernel_row("group_norm", "frido_tpu_torch/csrc/group_norm.cu",
                              "frido_tpu/ops/pallas/norm_pallas.py:130", err,

@@ -8,11 +8,14 @@ source is rebuilt and an unchanged one is reused. Nothing is built when a
 module is imported: the first CUDA launch of a kernel builds it, and
 :func:`build` builds several at once, one ``nvcc`` process each, all
 started together. A source may include the shared headers of ``csrc/``
-(``*.cuh``); they are part of every library's hash.
+(``*.cuh``); they are part of every library's hash. A launch goes to the
+runtime's current device, on the stream :func:`raw_stream` gives, inside
+:func:`device_context`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,6 +23,8 @@ import pathlib
 import shutil
 import subprocess
 from typing import Dict, Iterable
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -90,3 +95,17 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LOADED[name] = lib
     return lib
+
+
+def device_context(device: torch.device):
+    """The device's context for a launch, entered only when the tensors lie
+    on another device than the runtime's current one."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def raw_stream(device: torch.device) -> int:
+    """The device's current CUDA stream as an int, without making a
+    ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -35,7 +35,6 @@ is no backward kernel. ``.calls`` counts calls on any device,
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import itertools
@@ -44,7 +43,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from frido_tpu_torch.ops.cuda.build import library
+from frido_tpu_torch.ops.cuda.build import device_context, library
 from frido_tpu_torch.ops.norm import group_norm as group_norm_plain
 
 
@@ -316,14 +315,6 @@ def _ptr(t):
     return 0 if t is None else t.data_ptr()
 
 
-def _on(device):
-    """The launch goes to the runtime's current device: switch only if the
-    tensors lie on another one."""
-    if device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
-
-
 def _launch_conv(x, weight, bias):
     xc, wc, bc, out = _operands(x, weight, bias)
     n, cin, h, w = xc.shape
@@ -333,7 +324,7 @@ def _launch_conv(x, weight, bias):
     lib = _lib()
     fn = (lib.frido_conv3x3_f32 if x.dtype == torch.float32
           else lib.frido_conv3x3_bf16)
-    with _on(x.device):
+    with device_context(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(xc.data_ptr(), wc.data_ptr(), bc.data_ptr(), out.data_ptr(),
                 wp.data_ptr(), _ptr(ws), n, cin, h, w, cout, *plan.args,
@@ -374,7 +365,7 @@ def _launch_fused(x, weight, bias, nscale, nbias, num_groups, eps, gamma,
     lib = _lib()
     fn = (lib.frido_conv3x3_norm_silu_f32 if x.dtype == torch.float32
           else lib.frido_conv3x3_norm_silu_bf16)
-    with _on(x.device):
+    with device_context(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(xc.data_ptr(), wc.data_ptr(), bc.data_ptr(), nw.data_ptr(),
                 nb.data_ptr(), *tables, stats[0].data_ptr(),

@@ -41,8 +41,9 @@ from frido_tpu_torch.ops.cuda.attention import (attention_plain,
 from frido_tpu_torch.ops.cuda.conv import (conv3x3, conv3x3_norm_silu,
                                            conv3x3_norm_silu_plain,
                                            conv3x3_plain)
-from frido_tpu_torch.ops.cuda.norm import group_norm, group_norm_plain
-from frido_tpu_torch.ops.cuda.vq import vq_argmin, vq_argmin_plain
+from frido_tpu_torch.ops.cuda.norm import (group_norm, group_norm_plain,
+                                           group_norm_plan)
+from frido_tpu_torch.ops.cuda.vq import vq_argmin, vq_argmin_plain, vq_plan
 
 BF16_RTOL = 2.0 ** -8
 
@@ -520,3 +521,140 @@ def test_conv_kernels_are_deterministic(cuda, dtype):
     _, _, one = _fused_case((4, 1920, 4, 4), 960, False, 32, dtype, cuda)
     _, _, two = _fused_case((4, 1920, 4, 4), 960, False, 32, dtype, cuda)
     assert torch.equal(one, two)
+
+
+def _gn_case(shape, groups, dtype, silu, device, seed=90, x=None):
+    """One group_norm call against its plain version: (ok, max error,
+    output)."""
+    c = shape[1]
+    if x is None:
+        x = (_randn(shape, seed, device) * 2.0 + 0.5).to(dtype)
+    w = 1.0 + 0.1 * _randn((c,), seed + 1, device)
+    b = 0.1 * _randn((c,), seed + 2, device)
+    before = group_norm.launches
+    got = group_norm(x, w, b, groups, 1e-6, silu)
+    torch.cuda.synchronize()
+    assert group_norm.launches == before + 1
+    want = group_norm_plain(x.float(), w, b, groups, 1e-6, silu)
+    assert got.dtype == dtype and got.shape == want.shape
+    ok, err = _within(got, want, 5e-5, dtype)
+    return ok, err, got
+
+
+def _gn_plan(shape, groups, dtype):
+    n, c = shape[:2]
+    hw = int(np.prod(shape[2:]))
+    return group_norm_plan(n, c, groups, hw, torch.finfo(dtype).bits // 8)
+
+
+@pytest.mark.parametrize("shape,groups,dtype,path", [
+    ((4, 960, 4, 4), 32, torch.bfloat16, "regs"),    # 480 per run
+    ((4, 192, 32, 32), 32, torch.bfloat16, "regs"),  # C/G = 6
+    ((4, 256, 64, 64), 32, torch.float32, "regs"),   # 32768: 1024 threads
+    ((2, 96, 2, 2), 32, torch.bfloat16, "regs"),     # 12 per run
+    ((4, 512, 64, 64), 32, torch.float32, 8),
+    ((4, 256, 128, 128), 32, torch.float32, 16),
+    ((4, 128, 256, 256), 32, torch.float32, 16),     # the decoder's 1 MB
+    ((1, 32, 512, 512), 32, torch.float32, 16),      # exactly 16 x 64 KB
+    ((1, 32, 512, 513), 32, torch.float32, 0),       # just over: streamed
+    ((1, 64, 768, 768), 32, torch.float32, 0),
+    ((1, 32, 724, 724), 32, torch.bfloat16, 16),     # bf16, just under 1 MB
+    ((2, 64, 150, 150), 32, torch.float32, 8),       # slices end mid-channel
+    ((2, 64, 99, 99), 32, torch.float32, 4),         # ragged: element copies
+    ((2, 64, 102, 103), 32, torch.float32, 4),       # H*W % 4 == 2: bulk copy
+    ((2, 64, 5, 3), 32, torch.float32, 1),           # H*W % 4 != 0
+    ((2, 128, 5, 1), 32, torch.float32, 1),          # bulk copy, H*W = 5
+    ((2, 6, 7, 7), 1, torch.bfloat16, 1),            # one group of 294
+])
+@pytest.mark.parametrize("silu", [False, True])
+def test_group_norm_kernel_plan_paths(cuda, shape, groups, dtype, path,
+                                      silu):
+    """Each path of group_norm_plan (a run in one CTA's registers, in 1 to
+    16 CTAs of a cluster in shared memory, or streamed twice) and its
+    edges, in fp32 and bf16, with and without the SiLU, against the plain
+    version."""
+    plan = _gn_plan(shape, groups, dtype)
+    assert (plan.vpt > 0 if path == "regs"
+            else plan.vpt == 0 and plan.cluster == path)
+    ok, err, _ = _gn_case(shape, groups, dtype, silu, cuda)
+    assert ok, err
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((4, 960, 4, 4), torch.bfloat16),
+    ((4, 128, 256, 256), torch.float32),
+])
+@pytest.mark.parametrize("silu", [False, True])
+def test_group_norm_kernel_both_dtypes_at_the_ends(cuda, shape, dtype, silu):
+    """The smallest and the largest main-path runs in the other dtype too."""
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    for dt in (dtype, other):
+        ok, err, _ = _gn_case(shape, 32, dt, silu, cuda)
+        assert ok, (dt, err)
+
+
+@pytest.mark.parametrize("shape", [(4, 128, 64, 64), (2, 64, 150, 150),
+                                   (1, 32, 512, 512)])
+def test_group_norm_kernel_constant_group_across_a_cluster(cuda, shape):
+    """The clamped variance in one CTA's registers and split across a
+    cluster (8 and 16 CTAs): a constant 33.3 gives the bias."""
+    c = shape[1]
+    x = torch.full(shape, 33.3, device=cuda)
+    b = torch.linspace(-1, 1, c, device=cuda)
+    got = group_norm(x, torch.ones(c, device=cuda), b, 32, 1e-6)
+    assert bool(torch.isfinite(got).all())
+    assert (got - b[None, :, None, None]).abs().max().item() <= 4 * 2.0 ** -8
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((4, 128, 256, 256), torch.float32),
+    ((4, 192, 32, 32), torch.bfloat16),
+    ((1, 32, 512, 513), torch.float32),
+])
+def test_group_norm_kernel_is_deterministic(cuda, shape, dtype):
+    """Two calls on the same inputs give the same bits (the cluster's
+    partials are added in rank order)."""
+    _, _, one = _gn_case(shape, 32, dtype, True, cuda, seed=95)
+    _, _, two = _gn_case(shape, 32, dtype, True, cuda, seed=95)
+    assert torch.equal(one, two)
+
+
+@pytest.mark.parametrize("n", [1, 4096, 32769])
+@pytest.mark.parametrize("k", [300, 1000, 8191, 8192])
+@pytest.mark.parametrize("d", [3, 4])
+def test_vq_kernel_plan_sizes(cuda, n, k, d):
+    """Row counts under one tile and over a whole number of tiles, K that
+    leaves pad codes in the last part, both embed dims."""
+    z = _randn((n, d), 100 + d, cuda)
+    e = _randn((k, d), 200 + d, cuda)
+    before = vq_argmin.launches
+    got = vq_argmin(z, e)
+    torch.cuda.synchronize()
+    assert vq_argmin.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    assert bool(((got >= 0) & (got < k)).all())
+    assert _margin_ok(z, e, got, vq_argmin_plain(z, e))
+
+
+@pytest.mark.parametrize("n,k,d", [(4096, 8192, 4), (32768, 8192, 4),
+                                   (1024, 8192, 3), (77, 5000, 3)])
+def test_vq_kernel_equal_codes_in_different_parts(cuda, n, k, d):
+    """The same code at indices in different chunks, warps' parts and
+    cluster CTAs (by the plan), nearest to every row: the lowest index
+    wins."""
+    plan = vq_plan(n, k, d)
+    e = _randn((k, d), 300, cuda) * 10.0
+    at = sorted(i for i in {3, 3 + 16, plan.ks + 5, plan.ks * plan.warps + 7,
+                            k - 1} if i < k)
+    target = torch.full((d,), 0.25, device=cuda)
+    e[at] = target
+    z = target[None] + 0.01 * _randn((n, d), 301, cuda)
+    assert (vq_argmin(z, e).cpu() == at[0]).all()
+    e[at[0]] = 100.0        # now the second copy is the lowest
+    assert (vq_argmin(z, e).cpu() == at[1]).all()
+
+
+def test_vq_kernel_is_deterministic(cuda):
+    z = _randn((32768, 4), 310, cuda)
+    e = _randn((8192, 4), 311, cuda)
+    assert torch.equal(vq_argmin(z, e), vq_argmin(z, e))
