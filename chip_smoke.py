@@ -2,35 +2,56 @@
 
     python3 chip_smoke.py
 
-The main path is the t2i chain of ``configs/frido/t2i/frido_f16f8_coco.yaml``
-at full width: token ids -> BERT context -> PLMS with classifier-free
-guidance 1.5 (sequential) and a bf16 UNet over two pyramid stages ->
-MS-VQGAN decode (per-scale VQ re-quantization, post_quant_conv, the 256^2
-conv decoder). Weights are random, made from a seed; the zero-initialised
-output convs get a seeded random init too, so the UNet does not predict 0.
-It runs twice: in the default configuration (flash attention and the VQ
-argmin on their kernels), and in the JAX package's all-kernel
-configuration (``FRIDO_CONV_MODE=pallas_fused FRIDO_GN_PALLAS=1
-FRIDO_SMALLS_ATTN=1``), where GroupNorm, short-sequence attention, every
-3x3 conv and every fused ResBlock prologue take their kernels too.
+Two main paths, each at full width with batch 4, classifier-free guidance
+1.5 (sequential), a bf16 UNet over two pyramid stages and an fp32 MS-VQGAN
+decode (per-scale VQ re-quantization, post_quant_conv, the 256^2 conv
+decoder):
+
+- t2i, ``configs/frido/t2i/frido_f16f8_coco.yaml``: 77 token ids -> BERT
+  context -> PLMS over a 32^2 x 8 latent;
+- layout2i f8f4, ``configs/frido/layout2i/frido_f8f4_coco_seg.yaml``: 96
+  bbox token ids -> BERT context -> DPM-Solver++(2M), 25 steps, over a
+  64^2 x 6 latent (D = 3 codebooks of 4096; the decoder attends over 4096
+  tokens, the UNet over 1024 at 32^2).
+
+Weights are random, made from a seed; the zero-initialised output convs get
+a seeded random init too, so the UNet does not predict 0. Each path runs
+twice: in the default configuration (flash attention and the VQ argmin on
+their kernels), and in the JAX package's all-kernel configuration
+(``FRIDO_CONV_MODE=pallas_fused FRIDO_GN_PALLAS=1 FRIDO_SMALLS_ATTN=1``),
+where GroupNorm, short-sequence attention, every 3x3 conv and every fused
+ResBlock prologue take their kernels too.
 
 Phases, in order; any failure exits non-zero and nothing is caught:
 
 1. setup: card, power limit, versions, TF32 flags, kernel build time;
-2. each hand-written kernel at main-path shapes against its plain PyTorch
-   version: error, and kernel / plain / library-call times (CUDA events),
-   beside the least time the card could take (``bound_ms``);
+2. each hand-written kernel at the t2i path's shapes against its plain
+   PyTorch version: error, and kernel / plain / library-call times (CUDA
+   events), beside the least time the card could take (``bound_ms``);
 3. a toy-width model on the card against the same model on the CPU (the
    plain path, which the CPU tests hold to the JAX package), in both
-   configurations;
-4. the full-width main path in each configuration, with every kernel's
-   launch count set to 0 just before and read just after, and held to the
-   count the architecture gives.
+   configurations; then each sampler (PLMS, DDIM with eta 1,
+   DPM-Solver++(2M), the full-T vanilla chain over a schedule cut to 40
+   timesteps) on the toy model, card against CPU, the noise drawn from a
+   CPU generator seeded alike for both;
+4. the t2i path in each configuration, with every kernel's launch count
+   set to 0 just before and read just after, and held to the count the
+   architecture and the sampler give;
+5. the layout2i sites: every distinct kernel call of one all-kernel pass
+   of the layout2i model at batch 4 (conditioning, a UNet call per stage,
+   decode), recorded where the port calls the wrappers, and flash and the
+   VQ argmin at the decode chunk of 32, each checked and timed as in 2
+   (the "other sites"); then the layout2i path in each configuration,
+   as in 4.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit; before that, one ``{"kernels": [...]}``
-line. Without CUDA, or outside the repository, it exits non-zero and prints
-no result.
+line (the launches: the t2i path's), and before that one
+``{"other_sites": [...]}`` line (each site as the arguments of its
+check: attention (bh, nq, nk, d, dtype), VQ (n, k, d), GroupNorm (shape,
+dtype, groups, eps, silu), conv (shape, cout, dtype), fused conv (shape,
+cout, dtype, spade, groups, eps)). Without CUDA, or outside the repository,
+it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -62,14 +83,16 @@ import torch.nn.functional as F  # noqa: E402
 
 from frido_tpu_torch.config import instantiate_from_config, load_yaml  # noqa: E402,E501
 from frido_tpu_torch.nn.layers import Conv2d, GroupNorm  # noqa: E402
-from frido_tpu_torch.nn.pyunet import ResBlock, UNetUpsample  # noqa: E402
+from frido_tpu_torch.nn.pyunet import (  # noqa: E402
+    ResBlock, UNetDownsample, UNetUpsample)
 from frido_tpu_torch.nn.quantize import VectorQuantizer  # noqa: E402
 from frido_tpu_torch.nn.transformer import SpatialTransformer  # noqa: E402
 from frido_tpu_torch.nn.vqgan import AttnBlock  # noqa: E402
 from frido_tpu_torch.nn.xtransformer import XAttention  # noqa: E402
-from frido_tpu_torch.ops.cuda import build  # noqa: E402
+from frido_tpu_torch.ops.cuda import build, dispatch  # noqa: E402
 from frido_tpu_torch.ops.cuda.attention import (  # noqa: E402
-    attention_plain, flash_attention, smalls_attention)
+    attention_plain, flash_attention, flash_plan, smalls_attention,
+    smalls_plan)
 from frido_tpu_torch.ops.cuda.conv import (  # noqa: E402
     conv3x3, conv3x3_norm_silu, conv3x3_norm_silu_plain, conv3x3_plain,
     conv_plan)
@@ -77,9 +100,11 @@ from frido_tpu_torch.ops.cuda.norm import (  # noqa: E402
     group_norm, group_norm_plain, group_norm_plan)
 from frido_tpu_torch.ops.cuda.vq import (  # noqa: E402
     vq_argmin, vq_argmin_plain, vq_plan)
+from frido_tpu_torch.schedules import DDIMSchedule  # noqa: E402
 from frido_tpu_torch.tools.attention_ab import graph_ms  # noqa: E402
 
 T2I = REPO / "configs" / "frido" / "t2i" / "frido_f16f8_coco.yaml"
+L2I = REPO / "configs" / "frido" / "layout2i" / "frido_f8f4_coco_seg.yaml"
 
 # Published peaks of one H100 SXM (dense, at the 700 W limit).
 PEAK_FP32_FLOPS = 67e12      # fp32 outside the tensor cores
@@ -87,11 +112,8 @@ PEAK_TF32_FLOPS = 495e12     # tf32 tensor cores
 PEAK_BF16_FLOPS = 989e12     # bf16 tensor cores
 PEAK_BYTES = 3.35e12         # HBM3
 
-# main path, as bench.py runs it (batch 4 and 50 steps here, to stay short;
-# the all-kernel configuration 20 steps)
+# main path, as bench.py runs it (batch 4 here)
 BATCH = 4
-STEPS = 50
-ALL_KERNEL_STEPS = 20
 ALL_KERNELS = {"FRIDO_CONV_MODE": "pallas_fused", "FRIDO_GN_PALLAS": "1",
                "FRIDO_SMALLS_ATTN": "1"}
 # the t2i architecture's sites, as counted from the model: 22 ResBlocks (2
@@ -103,16 +125,57 @@ ALL_KERNELS = {"FRIDO_CONV_MODE": "pallas_fused", "FRIDO_GN_PALLAS": "1",
 T2I_ARCH = dict(res_blocks=22, transformers=16, upsamples=3, bert_layers=32,
                 first_stage_3x3=33, first_stage_norms=33, first_stage_attn=4,
                 codebooks=2)
+# layout2i f8f4: the t2i UNet's site counts, at 64^2; a three-level decoder
+# with 26 3x3 convs (conv_in, 2 per ResnetBlock x 11, 2 upsample,
+# conv_out), 27 GroupNorms (2 per ResnetBlock, 1 per AttnBlock, norm_out)
+# and 4 AttnBlocks (the middle one and three at 64^2)
+L2I_ARCH = dict(res_blocks=22, transformers=16, upsamples=3, bert_layers=32,
+                first_stage_3x3=26, first_stage_norms=27, first_stage_attn=4,
+                codebooks=2)
 GUIDANCE = 1.5
 DECODE_CHUNK = 32
 CTX_LEN = 77
+# Each main path: config, token window, the bound of its conditioning token
+# ids (t2i conditions on id 0 alone, as bench.py does; layout2i on seeded
+# bbox token ids, which lie below the dataset's no_tokens of 1024), sampler
+# and eta, steps in the default and in the all-kernel configuration (t2i
+# at 20, to keep the script short; layout2i at bench.py's BENCH_SAMPLER=
+# dpmpp default of 25), the architecture's counts.
+PATHS = {
+    "t2i": dict(config=T2I, ctx_len=CTX_LEN, token_high=1, sampler="plms",
+                eta=0.0, steps=20, all_kernel_steps=20, arch=T2I_ARCH),
+    "layout2i": dict(config=L2I, ctx_len=96, token_high=1024,
+                     sampler="dpmpp", eta=0.0, steps=25, all_kernel_steps=10,
+                     arch=L2I_ARCH),
+}
 PROFILE_STEPS = 4   # a short chain under torch.profiler, for the breakdown
+# the samplers' toy phase: the toy schedule cut to 40 timesteps (the
+# vanilla chain runs all of them), 4 steps for the others
+TOY_TIMESTEPS = 40
+TOY_SAMPLERS = (("plms", 0.0), ("ddim", 1.0), ("dpmpp", 0.0),
+                ("vanilla", 1.0))
 # kernel phases at the shapes the main path gives the kernels: flash at
 # the benchmark's decode chunk of 32 ([32, 1024, 512], the row) and at this
 # script's batch of 4; VQ at this script's batch of 4 (N = 4*32*32, the
 # row: both codebooks see a 32^2 latent grid) and at the decode chunk of 32
 FLASH_SHAPE = (32, 1024, 512)
 VQ_NS, VQ_K, VQ_D = (BATCH * 32 * 32, 32 * 32 * 32), 8192, 4
+# the layout2i sites: every distinct kernel call of the path, recorded from
+# the model, among them these (the decoder's fp32 attention at 64^2, the
+# UNet's one-head bf16 self-attention at 32^2, both D = 3 codebooks over a
+# 64^2 grid, the 64^2 UNet's fused prologues, convs and GroupNorm); and
+# flash and VQ at the decode chunk of 32, which this batch does not reach
+L2I_NAMED_SITES = (
+    ("flash_attention", (BATCH, 4096, 4096, 512, torch.float32)),
+    ("flash_attention", (BATCH, 1024, 1024, 384, torch.bfloat16)),
+    ("vq_argmin", (BATCH * 64 * 64, 4096, 3)),
+    ("conv3x3_norm_silu", ((BATCH, 192, 64, 64), 192, torch.bfloat16, True,
+                           32, 1e-5)),
+    ("conv3x3", ((BATCH, 3, 64, 64), 192, torch.bfloat16)),
+    ("group_norm", ((BATCH, 192, 64, 64), torch.bfloat16, 32, 1e-5, True)),
+)
+L2I_CHUNK_FLASH = (DECODE_CHUNK, 4096, 4096, 512, torch.float32)
+L2I_CHUNK_VQ = (DECODE_CHUNK * 64 * 64, 4096, 3)
 
 # Tolerances, fixed before the first run.
 # Every kernel against its plain version in fp32 on the same (exactly
@@ -165,8 +228,10 @@ def bound(ops, peak_ops, nbytes):
 
 
 def seeded(shape, seed, dtype=torch.float32, device="cuda"):
-    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
-    return torch.from_numpy(x).to(device=device, dtype=dtype)
+    """Standard normal fp32 values of ``shape``, drawn on ``device`` by a
+    generator seeded with ``seed``, in ``dtype``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
 
 
 def randomize_zero_init_(model, seed):
@@ -213,95 +278,6 @@ def setup():
     return card
 
 
-def flash_phase():
-    """The decode chunk's fp32 site gives the row; the main path's batch
-    of 4 and the kernel's bf16 form (off the main path) are checked and
-    timed too."""
-    b, n, d = FLASH_SHAPE
-    row = None
-    for shape, dtype in (((b, n, d), torch.float32),
-                         ((BATCH, n, d), torch.float32),
-                         ((b, n, d), torch.bfloat16)):
-        q, k, v = (seeded(shape, s, dtype) for s in (10, 11, 12))
-        scale = d ** -0.5
-        got = flash_attention(q, k, v, scale)
-        torch.cuda.synchronize()
-        want = attention_plain(q.float(), k.float(), v.float(), scale)
-        err, tol = check_close(f"flash {dtype} {list(shape)}", got, want,
-                               attn_atol(v, dtype), dtype)
-        ms = cuda_ms(lambda: flash_attention(q, k, v, scale))
-        plain_ms = cuda_ms(lambda: attention_plain(q, k, v, scale))
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, scale=scale))
-        itemsize = torch.finfo(dtype).bits // 8
-        bounded = matmul_bound(4 * shape[0] * n * n * d, dtype,
-                               4 * shape[0] * n * d * itemsize)
-        log(f"flash_attention {dtype} q,k,v {list(shape)}: max_abs_err "
-            f"{err:.3e} (tol {tol}), output max "
-            f"{want.abs().max().item():.3e}, kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-            f"{describe_bound(bounded)}")
-        if row is None:
-            row = kernel_row("flash_attention",
-                             "frido_tpu_torch/csrc/flash_attention.cu",
-                             "frido_tpu/ops/pallas/attention.py:301", err, ms,
-                             plain_ms, bounded, library_ms)
-    return row
-
-
-def vq_phase():
-    """The main path's N = 4 * 32 * 32 gives the row; the decode chunk's
-    N = 32 * 32 * 32 is checked and timed too. Device: a replayed CUDA
-    graph of 20 calls."""
-    row = None
-    for n in VQ_NS:
-        z = seeded((n, VQ_D), 20)
-        e = seeded((VQ_K, VQ_D), 21)
-        got = vq_argmin(z, e)
-        torch.cuda.synchronize()
-        want = vq_argmin_plain(z, e)
-        # error: how much farther the kernel's pick is than the plain pick,
-        # by the kernel's own distance, in float64
-        z64, e64 = z.double(), e.double()
-        esq = (e64 * e64).sum(1)
-
-        def dist(idx):
-            sel = e64[idx.long()]
-            return esq[idx.long()] - 2 * (z64 * sel).sum(1)
-
-        err = (dist(got) - dist(want)).abs().max().item()
-        if got.dtype != torch.int32 or got.shape != (n,):
-            raise AssertionError(f"vq_argmin gave {got.dtype} "
-                                 f"{tuple(got.shape)}")
-        if not err <= VQ_DIST_ATOL:
-            raise AssertionError(f"vq_argmin N {n}: distance of kernel pick "
-                                 f"vs plain pick differs by {err} > "
-                                 f"{VQ_DIST_ATOL}")
-        ms = cuda_ms(lambda: vq_argmin(z, e))
-        device_ms = graph_ms(lambda: vq_argmin(z, e))
-        plain_ms = cuda_ms(lambda: vq_argmin_plain(z, e))
-        library_ms = cuda_ms(lambda: torch.cdist(z, e).argmin(dim=1))
-        # per (row, code): D multiply-adds and one compare; |e|^2 once per
-        # code
-        ops = n * VQ_K * (2 * VQ_D + 1) + VQ_K * 2 * VQ_D
-        nbytes = 4 * (n * VQ_D + VQ_K * VQ_D + n)
-        bounded = bound(ops, PEAK_FP32_FLOPS, nbytes)
-        same = (got == want).float().mean().item()
-        p = vq_plan(n, VQ_K, VQ_D)
-        log(f"vq_argmin z [{n}, {VQ_D}] codebook [{VQ_K}, {VQ_D}]: same "
-            f"index {same:.6f} of rows, max distance gap {err:.3e} (tol "
-            f"{VQ_DIST_ATOL}), kernel {ms:.4f} ms (device {device_ms:.4f}), "
-            f"plain {plain_ms:.4f} ms, cdist+argmin {library_ms:.4f} ms, "
-            f"bound {bounded[0]:.4f} ms ({bounded[1]}); plan {p.grid} CTAs "
-            f"of {p.warps} warps in clusters of {p.cluster}, {32 * p.rows} "
-            f"rows a CTA, {p.ks} codes a part")
-        if row is None:
-            row = kernel_row("vq_argmin", "frido_tpu_torch/csrc/vq_argmin.cu",
-                             "frido_tpu/ops/pallas/vq_pallas.py:74", err, ms,
-                             plain_ms, bounded, library_ms)
-    return row
-
-
 def check_close(name, got, want, atol, dtype):
     """Raise unless |kernel - plain| <= atol (+ 2^-8 |plain| for bf16)
     everywhere; return the max error and the tolerance as text."""
@@ -346,113 +322,6 @@ def attn_atol(v, dtype):
                         2.0 ** -9 * v.float().abs().max().item())
 
 
-def kernel_row(name, source, replaces, err, ms, plain_ms, bounded,
-               library_ms):
-    bound_ms, bound_by = bounded[:2]
-    return dict(name=name, route="cuda", source=source, replaces=replaces,
-                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-
-
-def group_norm_phase():
-    """The heaviest site, the decoder's 256^2 fp32 norms (+SiLU), gives the
-    row; every other GroupNorm site of the main path (the decoder's fp32
-    ones, the UNet's bf16 ones) is checked and timed too. The library call
-    is F.group_norm, which has no SiLU: it times less work than the
-    kernel. Device: a replayed CUDA graph of 20 calls."""
-    sites = [  # (shape, dtype, eps, silu)
-        ((BATCH, 128, 256, 256), torch.float32, 1e-6, True),   # decoder
-        ((BATCH, 512, 32, 32), torch.float32, 1e-6, True),
-        ((BATCH, 512, 64, 64), torch.float32, 1e-6, True),
-        ((BATCH, 256, 64, 64), torch.float32, 1e-6, True),
-        ((BATCH, 256, 128, 128), torch.float32, 1e-6, True),
-        ((BATCH, 128, 128, 128), torch.float32, 1e-6, True),
-        ((BATCH, 192, 32, 32), torch.bfloat16, 1e-5, True),    # out head
-        ((BATCH, 384, 16, 16), torch.bfloat16, 1e-6, False),   # ST norms
-        ((BATCH, 576, 8, 8), torch.bfloat16, 1e-6, False),
-        ((BATCH, 960, 4, 4), torch.bfloat16, 1e-6, False),
-    ]
-    row = None
-    for shape, dtype, eps, silu in sites:
-        c = shape[1]
-        x = seeded(shape, 40, dtype)
-        w = 1.0 + 0.1 * seeded((c,), 41)
-        b = 0.1 * seeded((c,), 42)
-        got = group_norm(x, w, b, 32, eps, silu)
-        torch.cuda.synchronize()
-        want = group_norm_plain(x.float(), w, b, 32, eps, silu)
-        err, tol = check_close(f"group_norm {dtype} {list(shape)}", got, want,
-                               GN_ATOL, dtype)
-        ms = cuda_ms(lambda: group_norm(x, w, b, 32, eps, silu))
-        device_ms = graph_ms(lambda: group_norm(x, w, b, 32, eps, silu))
-        plain_ms = cuda_ms(lambda: group_norm_plain(x, w, b, 32, eps, silu))
-        wl, bl = w.to(dtype), b.to(dtype)
-        library_ms = cuda_ms(lambda: F.group_norm(x, 32, wl, bl, eps))
-        library_device_ms = graph_ms(lambda: F.group_norm(x, 32, wl, bl, eps))
-        n = x.numel()
-        itemsize = torch.finfo(dtype).bits // 8
-        # per element: 3 for the sums, 2 for the affine, 3 for the SiLU
-        bounded = bound((8 if silu else 5) * n, PEAK_FP32_FLOPS,
-                        2 * n * itemsize + 8 * c)
-        p = group_norm_plan(shape[0], c, 32, shape[2] * shape[3], itemsize)
-        path = (f"one CTA of {p.threads} threads per run, in registers"
-                if p.vpt else f"clusters of {p.cluster} CTAs, {p.slice}-"
-                f"element slices in shared memory" if p.cluster
-                else "streamed twice")
-        log(f"group_norm {dtype} x {list(shape)} eps {eps} silu {silu}: "
-            f"max_abs_err {err:.3e} (tol {tol}), kernel {ms:.4f} ms (device "
-            f"{device_ms:.4f}), plain {plain_ms:.4f} ms, F.group_norm (no "
-            f"SiLU) {library_ms:.4f} ms (device {library_device_ms:.4f}), "
-            f"bound {bounded[0]:.4f} ms ({bounded[1]}); plan: {path}")
-        if row is None:
-            row = kernel_row("group_norm", "frido_tpu_torch/csrc/group_norm.cu",
-                             "frido_tpu/ops/pallas/norm_pallas.py:130", err,
-                             ms, plain_ms, bounded, library_ms)
-    return row
-
-
-def smalls_phase():
-    """The heaviest site, the UNet's 256-token bf16 self-attention with one
-    head of d = 384, gives the row; the other sites are checked too."""
-    sites = [  # (bh, nq, nk, d, dtype)
-        (BATCH, 256, 256, 384, torch.bfloat16),   # self, 32^2 / 2
-        (BATCH, 256, CTX_LEN, 384, torch.bfloat16),   # cross
-        (BATCH, 64, 64, 576, torch.bfloat16),     # self at 8x8, d = 576
-        (BATCH, 64, CTX_LEN, 576, torch.bfloat16),
-        (BATCH, 16, 16, 960, torch.bfloat16),     # self at 4x4, d = 960
-        (BATCH, 16, CTX_LEN, 960, torch.bfloat16),
-        (BATCH * 8, CTX_LEN, CTX_LEN, 64, torch.float32),   # BERT
-    ]
-    row = None
-    for bh, nq, nk, d, dtype in sites:
-        q = seeded((bh, nq, d), 43, dtype)
-        k = seeded((bh, nk, d), 44, dtype)
-        v = seeded((bh, nk, d), 45, dtype)
-        scale = d ** -0.5
-        got = smalls_attention(q, k, v, scale)
-        torch.cuda.synchronize()
-        want = attention_plain(q.float(), k.float(), v.float(), scale)
-        err, tol = check_close(f"smalls_attention {dtype} {[bh, nq, nk, d]}",
-                               got, want, attn_atol(v, dtype), dtype)
-        ms = cuda_ms(lambda: smalls_attention(q, k, v, scale))
-        plain_ms = cuda_ms(lambda: attention_plain(q, k, v, scale))
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, scale=scale))
-        itemsize = torch.finfo(dtype).bits // 8
-        bounded = matmul_bound(4 * bh * nq * nk * d, dtype,
-                               (2 * nq + 2 * nk) * bh * d * itemsize)
-        log(f"smalls_attention {dtype} bh {bh} nq {nq} nk {nk} d {d}: "
-            f"max_abs_err {err:.3e} (tol {tol}), kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-            f"{describe_bound(bounded)}")
-        if row is None:
-            row = kernel_row("smalls_attention",
-                             "frido_tpu_torch/csrc/smalls_attention.cu",
-                             "frido_tpu/ops/pallas/attention.py:282", err, ms,
-                             plain_ms, bounded, library_ms)
-    return row
-
-
 def conv_operands(shape, cout, dtype, seed):
     cin = shape[1]
     x = seeded(shape, seed, dtype)
@@ -467,45 +336,6 @@ def conv_bytes(shape, cout, itemsize):
         * itemsize
 
 
-def conv3x3_phase():
-    """The heaviest site, the decoder's 256^2 fp32 conv, gives the row; the
-    UNet's bf16 sites with Cin = 4 and Cout = 4 and its three upsample
-    convs are checked too. The library call is F.conv2d (cuDNN, TF32
-    off)."""
-    sites = [  # (shape, cout, dtype)
-        ((BATCH, 128, 256, 256), 128, torch.float32),   # decoder
-        ((BATCH, 384, 32, 32), 384, torch.bfloat16),    # upsample conv, 32^2
-        ((BATCH, 576, 16, 16), 576, torch.bfloat16),    # upsample conv, 16^2
-        ((BATCH, 960, 8, 8), 960, torch.bfloat16),      # upsample conv, 8^2
-        ((BATCH, 4, 32, 32), 192, torch.bfloat16),      # pre_input
-        ((BATCH, 192, 32, 32), 4, torch.bfloat16),      # out head
-    ]
-    row = None
-    for shape, cout, dtype in sites:
-        x, w, b = conv_operands(shape, cout, dtype, 50)
-        got = conv3x3(x, w, b)
-        torch.cuda.synchronize()
-        want = conv3x3_plain(x.float(), w.float(), b.float())
-        err, tol = check_close(f"conv3x3 {dtype} {list(shape)}->{cout}", got,
-                               want, CONV_ATOL_RMS * rms(want), dtype)
-        ms = cuda_ms(lambda: conv3x3(x, w, b))
-        plain_ms = cuda_ms(lambda: conv3x3_plain(x, w, b))
-        library_ms = cuda_ms(lambda: F.conv2d(x, w, b, 1, 1))
-        n, cin, h, wd = shape
-        itemsize = torch.finfo(dtype).bits // 8
-        bounded = matmul_bound(2 * n * h * wd * cout * 9 * cin, dtype,
-                               conv_bytes(shape, cout, itemsize))
-        log(f"conv3x3 {dtype} x {list(shape)} -> {cout}: max_abs_err "
-            f"{err:.3e} (tol {tol}), kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, F.conv2d {library_ms:.4f} ms, "
-            f"{describe_bound(bounded)}; plan {conv_plan_of(x, cout)}")
-        if row is None:
-            row = kernel_row("conv3x3", "frido_tpu_torch/csrc/conv3x3.cu",
-                             "frido_tpu/ops/pallas/conv_pallas.py:177", err,
-                             ms, plain_ms, bounded, library_ms)
-    return row
-
-
 def conv_plan_of(x, cout, fused=False, spade=False):
     """The kernel's host plan for x -> cout, as printed beside its time."""
     p = conv_plan(*x.shape, cout, x.element_size(), fused, spade)
@@ -513,9 +343,8 @@ def conv_plan_of(x, cout, fused=False, spade=False):
             f"{p.split}, {p.smem} B shared")
 
 
-def fused_operands(shape, cout, spade, seed):
+def fused_operands(shape, cout, dtype, spade, seed):
     """x, weight, bias, the norm affine and (with SPADE) the tables."""
-    dtype = torch.bfloat16
     x, w, b = conv_operands(shape, cout, dtype, seed)
     cin = shape[1]
     ns = 1.0 + 0.1 * seeded((cin,), seed + 3)
@@ -527,58 +356,394 @@ def fused_operands(shape, cout, spade, seed):
     return x, w, b, ns, nb, g, bt
 
 
+def attention_site(kernel, bh, nq, nk, d, dtype):
+    """One attention kernel (``flash_attention`` or ``smalls_attention``)
+    over q [bh, nq, d], k, v [bh, nk, d] against its plain version;
+    returns (max error, kernel ms, plain ms, bound, SDPA ms)."""
+    fn, planner = ((flash_attention, flash_plan)
+                   if kernel == "flash_attention"
+                   else (smalls_attention, smalls_plan))
+    q = seeded((bh, nq, d), 10, dtype)
+    k, v = (seeded((bh, nk, d), s, dtype) for s in (11, 12))
+    scale = d ** -0.5
+    got = fn(q, k, v, scale)
+    torch.cuda.synchronize()
+    want = attention_plain(q.float(), k.float(), v.float(), scale)
+    err, tol = check_close(f"{kernel} {dtype} {[bh, nq, nk, d]}", got, want,
+                           attn_atol(v, dtype), dtype)
+    ms = cuda_ms(lambda: fn(q, k, v, scale))
+    plain_ms = cuda_ms(lambda: attention_plain(q, k, v, scale))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, scale=scale))
+    itemsize = torch.finfo(dtype).bits // 8
+    bounded = matmul_bound(4 * bh * nq * nk * d, dtype,
+                           (2 * nq + 2 * nk) * bh * d * itemsize)
+    p = planner(bh, nq, nk, d, itemsize)
+    log(f"{kernel} {dtype} bh {bh} nq {nq} nk {nk} d {d}: max_abs_err "
+        f"{err:.3e} (tol {tol}), output max {want.abs().max().item():.3e}, "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+        f"{library_ms:.4f} ms, {describe_bound(bounded)}; plan {p.rows}-row "
+        f"tiles, grid {list(p.grid)}, {p.smem} B shared")
+    return err, ms, plain_ms, bounded, library_ms
+
+
+def vq_site(n, k, d):
+    """The VQ argmin of z [n, d] against a codebook [k, d] against its
+    plain version; returns (max distance gap, kernel ms, plain ms, bound,
+    cdist + argmin ms). Device: a replayed CUDA graph of 20 calls."""
+    z = seeded((n, d), 20)
+    e = seeded((k, d), 21)
+    got = vq_argmin(z, e)
+    torch.cuda.synchronize()
+    want = vq_argmin_plain(z, e)
+    # error: how much farther the kernel's pick is than the plain pick,
+    # by the kernel's own distance, in float64
+    z64, e64 = z.double(), e.double()
+    esq = (e64 * e64).sum(1)
+
+    def dist(idx):
+        sel = e64[idx.long()]
+        return esq[idx.long()] - 2 * (z64 * sel).sum(1)
+
+    err = (dist(got) - dist(want)).abs().max().item()
+    if got.dtype != torch.int32 or got.shape != (n,):
+        raise AssertionError(f"vq_argmin gave {got.dtype} "
+                             f"{tuple(got.shape)}")
+    if not err <= VQ_DIST_ATOL:
+        raise AssertionError(f"vq_argmin N {n}: distance of kernel pick "
+                             f"vs plain pick differs by {err} > "
+                             f"{VQ_DIST_ATOL}")
+    ms = cuda_ms(lambda: vq_argmin(z, e))
+    device_ms = graph_ms(lambda: vq_argmin(z, e))
+    plain_ms = cuda_ms(lambda: vq_argmin_plain(z, e))
+    library_ms = cuda_ms(lambda: torch.cdist(z, e).argmin(dim=1))
+    # per (row, code): D multiply-adds and one compare; |e|^2 once per code
+    ops = n * k * (2 * d + 1) + k * 2 * d
+    nbytes = 4 * (n * d + k * d + n)
+    bounded = bound(ops, PEAK_FP32_FLOPS, nbytes)
+    same = (got == want).float().mean().item()
+    p = vq_plan(n, k, d)
+    log(f"vq_argmin z [{n}, {d}] codebook [{k}, {d}]: same "
+        f"index {same:.6f} of rows, max distance gap {err:.3e} (tol "
+        f"{VQ_DIST_ATOL}), kernel {ms:.4f} ms (device {device_ms:.4f}), "
+        f"plain {plain_ms:.4f} ms, cdist+argmin {library_ms:.4f} ms, "
+        f"bound {bounded[0]:.4f} ms ({bounded[1]}); plan {p.grid} CTAs "
+        f"of {p.warps} warps in clusters of {p.cluster}, {32 * p.rows} "
+        f"rows a CTA, {p.ks} codes a part")
+    return err, ms, plain_ms, bounded, library_ms
+
+
+def group_norm_site(shape, dtype, groups, eps, silu):
+    """GroupNorm (+ SiLU) of x ``shape`` against its plain version. The
+    library call is F.group_norm, which has no SiLU: it times less work
+    than the kernel. Device: a replayed CUDA graph of 20 calls."""
+    c = shape[1]
+    x = seeded(shape, 40, dtype)
+    w = 1.0 + 0.1 * seeded((c,), 41)
+    b = 0.1 * seeded((c,), 42)
+    got = group_norm(x, w, b, groups, eps, silu)
+    torch.cuda.synchronize()
+    want = group_norm_plain(x.float(), w, b, groups, eps, silu)
+    err, tol = check_close(f"group_norm {dtype} {list(shape)}", got, want,
+                           GN_ATOL, dtype)
+    ms = cuda_ms(lambda: group_norm(x, w, b, groups, eps, silu))
+    device_ms = graph_ms(lambda: group_norm(x, w, b, groups, eps, silu))
+    plain_ms = cuda_ms(lambda: group_norm_plain(x, w, b, groups, eps, silu))
+    wl, bl = w.to(dtype), b.to(dtype)
+    library_ms = cuda_ms(lambda: F.group_norm(x, groups, wl, bl, eps))
+    library_device_ms = graph_ms(lambda: F.group_norm(x, groups, wl, bl, eps))
+    n = x.numel()
+    itemsize = torch.finfo(dtype).bits // 8
+    # per element: 3 for the sums, 2 for the affine, 3 for the SiLU
+    bounded = bound((8 if silu else 5) * n, PEAK_FP32_FLOPS,
+                    2 * n * itemsize + 8 * c)
+    p = group_norm_plan(shape[0], c, groups, math.prod(shape[2:]), itemsize)
+    path = (f"one CTA of {p.threads} threads per run, in registers"
+            if p.vpt else f"clusters of {p.cluster} CTAs, {p.slice}-"
+            f"element slices in shared memory" if p.cluster
+            else "streamed twice")
+    log(f"group_norm {dtype} x {list(shape)} groups {groups} eps {eps} silu "
+        f"{silu}: max_abs_err {err:.3e} (tol {tol}), kernel {ms:.4f} ms "
+        f"(device {device_ms:.4f}), plain {plain_ms:.4f} ms, F.group_norm "
+        f"(no SiLU) {library_ms:.4f} ms (device {library_device_ms:.4f}), "
+        f"bound {bounded[0]:.4f} ms ({bounded[1]}); plan: {path}")
+    return err, ms, plain_ms, bounded, library_ms
+
+
+def conv3x3_site(shape, cout, dtype):
+    """The 3x3 conv of x ``shape`` to ``cout`` channels against its plain
+    version. The library call is F.conv2d (cuDNN, TF32 off)."""
+    x, w, b = conv_operands(shape, cout, dtype, 50)
+    got = conv3x3(x, w, b)
+    torch.cuda.synchronize()
+    want = conv3x3_plain(x.float(), w.float(), b.float())
+    err, tol = check_close(f"conv3x3 {dtype} {list(shape)}->{cout}", got,
+                           want, CONV_ATOL_RMS * rms(want), dtype)
+    ms = cuda_ms(lambda: conv3x3(x, w, b))
+    plain_ms = cuda_ms(lambda: conv3x3_plain(x, w, b))
+    library_ms = cuda_ms(lambda: F.conv2d(x, w, b, 1, 1))
+    n, cin, h, wd = shape
+    itemsize = torch.finfo(dtype).bits // 8
+    bounded = matmul_bound(2 * n * h * wd * cout * 9 * cin, dtype,
+                           conv_bytes(shape, cout, itemsize))
+    log(f"conv3x3 {dtype} x {list(shape)} -> {cout}: max_abs_err "
+        f"{err:.3e} (tol {tol}), kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, F.conv2d {library_ms:.4f} ms, "
+        f"{describe_bound(bounded)}; plan {conv_plan_of(x, cout)}")
+    return err, ms, plain_ms, bounded, library_ms
+
+
+def conv3x3_norm_silu_site(shape, cout, dtype, spade, groups, eps):
+    """The fused GroupNorm -> (SPADE) -> SiLU -> 3x3 conv of x ``shape``
+    against its plain version. No single library call computes the fused
+    op: library_ms is None; F.conv2d of the conv alone (no prologue) on
+    the same shape is printed beside it. Its tolerance is fixed for bf16,
+    the dtype of every fused site."""
+    if dtype != torch.bfloat16:
+        raise AssertionError(f"conv3x3_norm_silu in {dtype}: no tolerance "
+                             f"fixed")
+    x, w, b, ns, nb, g, bt = fused_operands(shape, cout, dtype, spade, 60)
+    args = (x, w, b, ns, nb, groups, eps, g, bt)
+    got = conv3x3_norm_silu(*args)
+    torch.cuda.synchronize()
+    up = (lambda t: None if t is None else t.float())
+    want = conv3x3_norm_silu_plain(x.float(), w.float(), b.float(), ns, nb,
+                                   groups, eps, up(g), up(bt))
+    err, tol = check_close(
+        f"conv3x3_norm_silu {dtype} {list(shape)}->{cout}", got, want,
+        FUSED_BF16_ATOL_RMS * rms(want), dtype)
+    ms = cuda_ms(lambda: conv3x3_norm_silu(*args))
+    plain_ms = cuda_ms(lambda: conv3x3_norm_silu_plain(*args))
+    alone_ms = cuda_ms(lambda: F.conv2d(x, w, b, 1, 1))
+    n, cin, h, wd = shape
+    itemsize = torch.finfo(dtype).bits // 8
+    # the conv's products, and per input element 3 for the statistics,
+    # 2 for the affine, 2 for SPADE and 3 for the SiLU
+    ops = (2 * n * h * wd * cout * 9 * cin
+           + (10 if spade else 8) * x.numel())
+    nbytes = conv_bytes(shape, cout, itemsize) + 8 * cin + (
+        2 * x.numel() * itemsize if spade else 0)
+    bounded = bound(ops, PEAK_BF16_FLOPS, nbytes)
+    split = conv_plan(*shape, cout, itemsize, True, spade).split > 1
+    launches = "statistics, pack, conv" + (", reduce" if split else "")
+    log(f"conv3x3_norm_silu {dtype} x {list(shape)} -> {cout} spade "
+        f"{spade}: max_abs_err {err:.3e} (tol {tol}), kernel {ms:.4f} ms "
+        f"(one call: {launches}), plain {plain_ms:.4f} ms, no library call "
+        f"(conv alone, no prologue: F.conv2d {alone_ms:.4f} ms), "
+        f"bound {bounded[0]:.4f} ms ({bounded[1]}); plan "
+        f"{conv_plan_of(x, cout, True, spade)}")
+    return err, ms, plain_ms, bounded, None
+
+
+# each kernel: its source, the TPU kernel it replaces, its site check
+KERNEL_SOURCES = {
+    "flash_attention": ("frido_tpu_torch/csrc/flash_attention.cu",
+                        "frido_tpu/ops/pallas/attention.py:301"),
+    "vq_argmin": ("frido_tpu_torch/csrc/vq_argmin.cu",
+                  "frido_tpu/ops/pallas/vq_pallas.py:74"),
+    "group_norm": ("frido_tpu_torch/csrc/group_norm.cu",
+                   "frido_tpu/ops/pallas/norm_pallas.py:130"),
+    "smalls_attention": ("frido_tpu_torch/csrc/smalls_attention.cu",
+                         "frido_tpu/ops/pallas/attention.py:282"),
+    "conv3x3_norm_silu": ("frido_tpu_torch/csrc/conv3x3.cu",
+                          "frido_tpu/ops/pallas/conv_pallas.py:376"),
+    "conv3x3": ("frido_tpu_torch/csrc/conv3x3.cu",
+                "frido_tpu/ops/pallas/conv_pallas.py:177"),
+}
+SITE_CHECKS = {
+    "flash_attention": lambda *s: attention_site("flash_attention", *s),
+    "vq_argmin": vq_site,
+    "group_norm": group_norm_site,
+    "smalls_attention": lambda *s: attention_site("smalls_attention", *s),
+    "conv3x3_norm_silu": conv3x3_norm_silu_site,
+    "conv3x3": conv3x3_site,
+}
+
+
+def phase_row(name, sites):
+    """Check and time the kernel ``name`` at each site (the arguments of
+    its site check); the first site gives its row of the kernels line."""
+    results = [SITE_CHECKS[name](*site) for site in sites]
+    err, ms, plain_ms, bounded, library_ms = results[0]
+    source, replaces = KERNEL_SOURCES[name]
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bounded[0], bound_by=bounded[1],
+                library_ms=library_ms)
+
+
+def flash_phase():
+    """The decode chunk's fp32 site gives the row; the main path's batch
+    of 4 and the kernel's bf16 form (off the t2i path) are checked and
+    timed too."""
+    b, n, d = FLASH_SHAPE
+    return phase_row("flash_attention", [(b, n, n, d, torch.float32),
+                                         (BATCH, n, n, d, torch.float32),
+                                         (b, n, n, d, torch.bfloat16)])
+
+
+def vq_phase():
+    """The main path's N = 4 * 32 * 32 gives the row; the decode chunk's
+    N = 32 * 32 * 32 is checked and timed too."""
+    return phase_row("vq_argmin", [(n, VQ_K, VQ_D) for n in VQ_NS])
+
+
+def group_norm_phase():
+    """The heaviest site, the decoder's 256^2 fp32 norms (+SiLU), gives the
+    row; every other GroupNorm site of the main path (the decoder's fp32
+    ones, the UNet's bf16 ones) is checked and timed too."""
+    return phase_row("group_norm", [  # (shape, dtype, groups, eps, silu)
+        ((BATCH, 128, 256, 256), torch.float32, 32, 1e-6, True),  # decoder
+        ((BATCH, 512, 32, 32), torch.float32, 32, 1e-6, True),
+        ((BATCH, 512, 64, 64), torch.float32, 32, 1e-6, True),
+        ((BATCH, 256, 64, 64), torch.float32, 32, 1e-6, True),
+        ((BATCH, 256, 128, 128), torch.float32, 32, 1e-6, True),
+        ((BATCH, 128, 128, 128), torch.float32, 32, 1e-6, True),
+        ((BATCH, 192, 32, 32), torch.bfloat16, 32, 1e-5, True),   # out head
+        ((BATCH, 384, 16, 16), torch.bfloat16, 32, 1e-6, False),  # ST norms
+        ((BATCH, 576, 8, 8), torch.bfloat16, 32, 1e-6, False),
+        ((BATCH, 960, 4, 4), torch.bfloat16, 32, 1e-6, False),
+    ])
+
+
+def smalls_phase():
+    """The heaviest site, the UNet's 256-token bf16 self-attention with one
+    head of d = 384, gives the row; the other sites are checked too."""
+    bf16 = torch.bfloat16
+    return phase_row("smalls_attention", [  # (bh, nq, nk, d, dtype)
+        (BATCH, 256, 256, 384, bf16),          # self, 32^2 / 2
+        (BATCH, 256, CTX_LEN, 384, bf16),      # cross
+        (BATCH, 64, 64, 576, bf16),            # self at 8x8, d = 576
+        (BATCH, 64, CTX_LEN, 576, bf16),
+        (BATCH, 16, 16, 960, bf16),            # self at 4x4, d = 960
+        (BATCH, 16, CTX_LEN, 960, bf16),
+        (BATCH * 8, CTX_LEN, CTX_LEN, 64, torch.float32),   # BERT
+    ])
+
+
+def conv3x3_phase():
+    """The heaviest site, the decoder's 256^2 fp32 conv, gives the row; the
+    UNet's bf16 sites with Cin = 4 and Cout = 4 and its three upsample
+    convs are checked too."""
+    bf16 = torch.bfloat16
+    return phase_row("conv3x3", [  # (shape, cout, dtype)
+        ((BATCH, 128, 256, 256), 128, torch.float32),   # decoder
+        ((BATCH, 384, 32, 32), 384, bf16),    # upsample conv, 32^2
+        ((BATCH, 576, 16, 16), 576, bf16),    # upsample conv, 16^2
+        ((BATCH, 960, 8, 8), 960, bf16),      # upsample conv, 8^2
+        ((BATCH, 4, 32, 32), 192, bf16),      # pre_input
+        ((BATCH, 192, 32, 32), 4, bf16),      # out head
+    ])
+
+
 def conv3x3_norm_silu_phase():
     """The heaviest prologue, [4, 576, 32, 32] -> 192 with SPADE (stage 1),
     gives the row; the heaviest one at each other resolution of the UNet
-    is checked and timed too. No single library call computes the fused
-    op: library_ms is null; F.conv2d of the conv alone (no prologue) on the
-    same shape is printed beside each."""
-    sites = [  # (shape, cout, spade)
-        ((BATCH, 576, 32, 32), 192, True),
-        ((BATCH, 960, 16, 16), 384, True),
-        ((BATCH, 1536, 8, 8), 576, True),
-        ((BATCH, 1920, 4, 4), 960, True),
-        ((BATCH, 1920, 4, 4), 960, False),
-    ]
-    dtype = torch.bfloat16
-    row = None
-    for shape, cout, spade in sites:
-        x, w, b, ns, nb, g, bt = fused_operands(shape, cout, spade, 60)
-        args = (x, w, b, ns, nb, 32, 1e-5, g, bt)
-        got = conv3x3_norm_silu(*args)
-        torch.cuda.synchronize()
-        up = (lambda t: None if t is None else t.float())
-        want = conv3x3_norm_silu_plain(x.float(), w.float(), b.float(), ns,
-                                       nb, 32, 1e-5, up(g), up(bt))
-        err, tol = check_close(
-            f"conv3x3_norm_silu {list(shape)}->{cout}", got, want,
-            FUSED_BF16_ATOL_RMS * rms(want), dtype)
-        ms = cuda_ms(lambda: conv3x3_norm_silu(*args))
-        plain_ms = cuda_ms(lambda: conv3x3_norm_silu_plain(*args))
-        alone_ms = cuda_ms(lambda: F.conv2d(x, w, b, 1, 1))
-        n, cin, h, wd = shape
-        itemsize = torch.finfo(dtype).bits // 8
-        # the conv's products, and per input element 3 for the statistics,
-        # 2 for the affine, 2 for SPADE and 3 for the SiLU
-        ops = (2 * n * h * wd * cout * 9 * cin
-               + (10 if spade else 8) * x.numel())
-        nbytes = conv_bytes(shape, cout, itemsize) + 8 * cin + (
-            2 * x.numel() * itemsize if spade else 0)
-        bounded = bound(ops, PEAK_BF16_FLOPS, nbytes)
-        split = conv_plan(*shape, cout, itemsize, True, spade).split > 1
-        launches = "statistics, pack, conv" + (", reduce" if split else "")
-        log(f"conv3x3_norm_silu {dtype} x {list(shape)} -> {cout} spade "
-            f"{spade}: max_abs_err {err:.3e} (tol {tol}), kernel {ms:.4f} ms "
-            f"(one call: {launches}), "
-            f"plain {plain_ms:.4f} ms, no library call (conv alone, no "
-            f"prologue: F.conv2d {alone_ms:.4f} ms), bound {bounded[0]:.4f} "
-            f"ms ({bounded[1]}); plan {conv_plan_of(x, cout, True, spade)}")
-        if row is None:
-            row = kernel_row("conv3x3_norm_silu",
-                             "frido_tpu_torch/csrc/conv3x3.cu",
-                             "frido_tpu/ops/pallas/conv_pallas.py:376", err,
-                             ms, plain_ms, bounded, None)
-    return row
+    is checked and timed too."""
+    bf16 = torch.bfloat16
+    return phase_row("conv3x3_norm_silu", [
+        # (shape, cout, dtype, spade, groups, eps)
+        ((BATCH, 576, 32, 32), 192, bf16, True, 32, 1e-5),
+        ((BATCH, 960, 16, 16), 384, bf16, True, 32, 1e-5),
+        ((BATCH, 1536, 8, 8), 576, bf16, True, 32, 1e-5),
+        ((BATCH, 1920, 4, 4), 960, bf16, True, 32, 1e-5),
+        ((BATCH, 1920, 4, 4), 960, bf16, False, 32, 1e-5),
+    ])
+
+
+def record_sites(model, path):
+    """Every distinct kernel call of one pass of ``path`` at this script's
+    batch in the current configuration: both conditionings, one UNet call
+    in each stage (with its SPADE tables after the first) and the decode,
+    recorded where the port calls the six wrappers. Returns {kernel:
+    {arguments of its site check}}."""
+    from frido_tpu_torch.nn import layers, transformer
+    from frido_tpu_torch.ops import vq as ops_vq
+
+    found = {name: set() for name in KERNELS}
+
+    def attention(name):
+        def call(q, k, v, scale):
+            found[name].add((math.prod(q.shape[:-2]), q.shape[-2],
+                             k.shape[-2], q.shape[-1], q.dtype))
+            return KERNELS[name](q, k, v, scale)
+        return call
+
+    def vq(z, e):
+        found["vq_argmin"].add((z.shape[0],) + tuple(e.shape))
+        return vq_argmin(z, e)
+
+    def norm(x, weight, bias, num_groups=32, eps=1e-6, fuse_silu=False):
+        found["group_norm"].add((tuple(x.shape), x.dtype, num_groups, eps,
+                                 fuse_silu))
+        return group_norm(x, weight, bias, num_groups, eps, fuse_silu)
+
+    def conv(x, weight, bias):
+        found["conv3x3"].add((tuple(x.shape), weight.shape[0], x.dtype))
+        return conv3x3(x, weight, bias)
+
+    def fused(x, weight, bias, nscale, nbias, num_groups, eps, gamma=None,
+              beta=None):
+        found["conv3x3_norm_silu"].add((tuple(x.shape), weight.shape[0],
+                                        x.dtype, gamma is not None,
+                                        num_groups, eps))
+        return conv3x3_norm_silu(x, weight, bias, nscale, nbias, num_groups,
+                                 eps, gamma, beta)
+
+    patches = [(transformer, "flash_attention", attention("flash_attention")),
+               (transformer, "smalls_attention",
+                attention("smalls_attention")),
+               (ops_vq, "vq_argmin", vq), (layers, "group_norm", norm),
+               (layers, "conv3x3", conv), (layers, "conv3x3_norm_silu", fused)]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+    side, device = model.image_size, model.device
+    x = seeded((BATCH, side, side, model.channels), 32, torch.bfloat16,
+               device)
+    t = torch.full((BATCH,), 500, device=device)
+    try:
+        for mod, attr, fn in patches:
+            setattr(mod, attr, fn)
+        with torch.no_grad():
+            ctx = model.get_learned_conditioning(np.zeros(
+                (BATCH, path["ctx_len"]), np.int64)).to(torch.bfloat16)
+            for stage in range(model.num_stage):
+                frozen = sum(model.embed_dim_list[:stage])
+                tables = (model.spade_tables(x[..., :frozen], stage)
+                          if stage else None)
+                model.apply_model(x, t, ctx, stage, tables)
+            model.decode_first_stage(x.float(), chunk=DECODE_CHUNK)
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    return found
+
+
+def layout2i_sites_phase(model):
+    """Every kernel site of the layout2i path, taken from the model: each
+    distinct kernel call of one all-kernel pass at this script's batch
+    (``record_sites``), and flash and the VQ argmin at the decode chunk of
+    32, each against its plain version with the tolerances above. Returns
+    one "other sites" entry per site."""
+    with all_kernels():
+        found = record_sites(model, PATHS["layout2i"])
+    for name, site in L2I_NAMED_SITES:
+        if site not in found[name]:
+            raise AssertionError(f"the layout2i pass made no {name} call at "
+                                 f"{site}: {sorted(found[name], key=str)}")
+    found["flash_attention"].add(L2I_CHUNK_FLASH)
+    found["vq_argmin"].add(L2I_CHUNK_VQ)
+    sites = []
+    for name in KERNELS:
+        for site in sorted(found[name], key=str):
+            err, ms, plain_ms, bounded, library_ms = SITE_CHECKS[name](*site)
+            sites.append(dict(
+                name=name, site=str(site).replace("torch.", ""),
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bounded[0], bound_by=bounded[1],
+                library_ms=library_ms))
+    log(f"layout2i sites: {len(sites)} checked "
+        f"({ {n: len(s) for n, s in found.items()} })")
+    return sites
 
 
 def unet_conv_sites(model):
@@ -623,7 +788,8 @@ def unet_conv_sum_phase(model):
     kernel = library = 0.0
     for (shape, cout, fused, spade), count in sorted(sites.items()):
         if fused:
-            x, w, b, ns, nb, g, bt = fused_operands(shape, cout, spade, 70)
+            x, w, b, ns, nb, g, bt = fused_operands(
+                shape, cout, torch.bfloat16, spade, 70)
             ms = cuda_ms(lambda: conv3x3_norm_silu(x, w, b, ns, nb, 32, 1e-5,
                                                    g, bt))
         else:
@@ -704,7 +870,7 @@ def toy_phase(label):
         ctx = model.get_learned_conditioning(tokens)
         uctx = model.get_learned_conditioning(np.zeros_like(tokens))
         z = model.sample(2, context=ctx, uncond_context=uctx, steps=4,
-                         guidance_scale=GUIDANCE, x_init=x_init,
+                         eta=0.0, guidance_scale=GUIDANCE, x_init=x_init,
                          cfg_mode="sequential")
         latents.append(z.cpu())
     lat_err = (latents[0] - latents[1]).abs().max().item()
@@ -758,6 +924,41 @@ def toy_phase(label):
     return launches
 
 
+def sampler_phase():
+    """Each sampler on the toy model with its schedule cut to
+    ``TOY_TIMESTEPS``, card against CPU, CFG 1.5 sequential: PLMS, DDIM
+    with eta 1, DPM-Solver++(2M) at 4 steps, the vanilla chain over every
+    timestep. Every random number comes from a CPU generator seeded alike
+    for both runs, so both see the same noise."""
+    cfg = toy_config()
+    cfg["params"]["timesteps"] = TOY_TIMESTEPS
+    cpu = instantiate_from_config(cfg, device="cpu", seed=1)
+    randomize_zero_init_(cpu, 2)
+    gpu = instantiate_from_config(cfg, seed=1)
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    tokens = np.random.default_rng(3).integers(0, 30522, (2, CTX_LEN))
+    for sampler, eta in TOY_SAMPLERS:
+        latents = []
+        for model in (cpu, gpu):
+            ctx = model.get_learned_conditioning(tokens)
+            uctx = model.get_learned_conditioning(np.zeros_like(tokens))
+            gen = torch.Generator().manual_seed(5)
+            z = model.sample(2, context=ctx, uncond_context=uctx, steps=4,
+                             eta=eta, guidance_scale=GUIDANCE,
+                             sampler=sampler, cfg_mode="sequential",
+                             generator=gen)
+            latents.append(z.cpu())
+        err = (latents[0] - latents[1]).abs().max().item()
+        if not (bool(torch.isfinite(latents[1]).all())
+                and err <= TOY_LATENT_ATOL):
+            raise AssertionError(f"toy {sampler} latent card vs CPU {err} > "
+                                 f"{TOY_LATENT_ATOL}")
+        log(f"toy sampler {sampler} (eta {eta}, {TOY_TIMESTEPS} timesteps) "
+            f"card vs CPU: latent max_abs_err {err:.3e} (tol "
+            f"{TOY_LATENT_ATOL}), latent std "
+            f"{latents[0].std().item():.4f}")
+
+
 # ---------------------------------------------------------------------------
 def timed(fn):
     torch.cuda.synchronize()
@@ -767,28 +968,72 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def drive_main_path(model, seed, steps):
-    """tokens -> context -> PLMS -> decode, as bench.py's pipeline; returns
-    (image, latent, phase seconds)."""
-    tokens = np.zeros((BATCH, CTX_LEN), np.int64)
+def drive_main_path(model, path, seed, steps):
+    """tokens -> context -> the path's sampler -> decode, as bench.py's
+    pipeline; returns (image, latent, phase seconds). The conditioning
+    token ids are seeded below the path's ``token_high``, the
+    unconditional branch's are 0."""
+    shape = (BATCH, path["ctx_len"])
+    utokens = np.zeros(shape, np.int64)
+    tokens = np.random.default_rng(seed).integers(0, path["token_high"],
+                                                  shape)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     (ctx, uctx), t_cond = timed(lambda: (
         model.get_learned_conditioning(tokens),
-        model.get_learned_conditioning(tokens)))
+        model.get_learned_conditioning(utokens)))
     z, t_sample = timed(lambda: model.sample(
         BATCH, context=ctx, uncond_context=uctx, steps=steps,
-        guidance_scale=GUIDANCE,
+        eta=path["eta"], guidance_scale=GUIDANCE, sampler=path["sampler"],
         compute_dtype=torch.bfloat16, cfg_mode="sequential", generator=gen))
     img, t_decode = timed(lambda: model.decode_first_stage(
         z, chunk=DECODE_CHUNK))
     return img, z, dict(cond=t_cond, sample=t_sample, decode=t_decode)
 
 
-def architecture(model, steps):
+def unet_calls(model, sampler, steps):
+    """UNet calls of one chain under CFG sequential (two a evaluation):
+    per stage PLMS makes S + 1 evaluations (step 0 takes two), DDIM and
+    DPM-Solver++ S, the vanilla chain one per timestep of the schedule."""
+    if sampler == "vanilla":
+        per_stage = model.schedule.num_timesteps
+    else:
+        per_stage = DDIMSchedule.create(model.schedule, steps).num_steps
+        per_stage += sampler == "plms"
+    return model.num_stage * per_stage * 2
+
+
+def attention_tokens(model):
+    """(tokens of each SpatialTransformer's self-attention in one UNet call,
+    tokens of each decoder AttnBlock), walked from the modules: the UNet
+    from the latent size through its down- and upsamples, the decoder from
+    the latent size through its upsamples."""
+    unet = model.model.diffusion_model
+    side = model.image_size
+    unet_tokens = []
+    for _, layers in unet._trunk():
+        for _, mod in layers:
+            if isinstance(mod, UNetDownsample):
+                side //= 2
+            elif isinstance(mod, UNetUpsample):
+                side *= 2
+            elif isinstance(mod, SpatialTransformer):
+                unet_tokens.append(side * side)
+    dec = model.first_stage_model.decoder
+    side = model.image_size
+    dec_tokens = [side * side]           # the middle AttnBlock
+    for i in reversed(range(len(dec.up))):
+        dec_tokens += [side * side] * len(dec.up[i]["attn"])
+        if "upsample" in dec.up[i]:
+            side *= 2
+    return unet_tokens, dec_tokens
+
+
+def architecture(model, path, steps):
     """The sites of the model that the kernels serve, counted from its
-    modules, and the UNet calls of a PLMS run of ``steps`` steps."""
+    modules, and the UNet calls of a run of the path's sampler."""
     unet = model.model.diffusion_model
     first = model.first_stage_model
+    unet_tokens, dec_tokens = attention_tokens(model)
     return dict(
         res_blocks=count(unet, ResBlock),
         transformers=count(unet, SpatialTransformer),
@@ -800,32 +1045,54 @@ def architecture(model, steps):
         first_stage_norms=count(first, GroupNorm),
         first_stage_attn=count(first, AttnBlock),
         codebooks=count(first, VectorQuantizer),
-        # each of the stages takes steps + 1 eps evaluations (PLMS peels
-        # step 0 into two), each two UNet calls (CFG sequential)
-        unet_calls=model.num_stage * (steps + 1) * 2,
+        unet_attn_tokens=unet_tokens, decoder_attn_tokens=dec_tokens,
+        ctx_len=path["ctx_len"],
+        unet_calls=unet_calls(model, path["sampler"], steps),
         table_stages=model.num_stage - 1)
+
+
+def attention_route(nq, nk):
+    """The kernel an attention of nq queries over nk keys takes in the
+    current configuration, by the gates ``dot_attention`` asks, or None
+    for the plain form."""
+    if dispatch.use_flash(nk):
+        return "flash_attention"
+    if dispatch.use_smalls(nq, nk):
+        return "smalls_attention"
+    return None
 
 
 def expected_launches(arch, all_kernel):
     """Each kernel's launches in one main-path run.
 
-    Per UNet call in the all-kernel configuration: 2 fused prologues per
-    ResBlock; 3x3 convs at pre_input, each upsample and the out head; a
-    GroupNorm in each SpatialTransformer and the out head; a self- and a
-    cross-attention in each SpatialTransformer. Once per stage after the
-    first, the SPADE tables: the pre_input_cond conv and three 3x3 convs
-    at each SPADE site (2 per ResBlock, 1 per SpatialTransformer). BERT:
-    one attention per layer for each of the 2 conditionings. Decode, once
-    per chunk: every 3x3 conv and GroupNorm of the first stage, a flash
-    attention per AttnBlock (1024 tokens), a VQ argmin per codebook."""
+    Attention: each SpatialTransformer's self-attention (over its tokens)
+    and cross-attention (its tokens over the context) in every UNet call,
+    one attention per BERT layer for each of the 2 conditionings, one per
+    decoder AttnBlock in each decoded chunk, each counted for the kernel
+    its token counts route it to in the current configuration. Per UNet
+    call in the all-kernel
+    configuration: 2 fused prologues per ResBlock; 3x3 convs at pre_input,
+    each upsample and the out head; a GroupNorm in each SpatialTransformer
+    and the out head. Once per stage after the first, the SPADE tables: the
+    pre_input_cond conv and three 3x3 convs at each SPADE site (2 per
+    ResBlock, 1 per SpatialTransformer). Decode, once per chunk: every 3x3
+    conv and GroupNorm of the first stage, a VQ argmin per codebook."""
     a = arch
     chunks = BATCH // DECODE_CHUNK if (BATCH > DECODE_CHUNK and
                                        BATCH % DECODE_CHUNK == 0) else 1
-    want = dict(flash_attention=a["first_stage_attn"] * chunks,
-                vq_argmin=a["codebooks"] * chunks, group_norm=0,
-                smalls_attention=0, conv3x3=0, conv3x3_norm_silu=0)
+    calls, ctx = a["unet_calls"], a["ctx_len"]
+    want = dict(flash_attention=0, vq_argmin=a["codebooks"] * chunks,
+                group_norm=0, smalls_attention=0, conv3x3=0,
+                conv3x3_norm_silu=0)
+    sites = [(tok, tok, calls) for tok in a["unet_attn_tokens"]]
+    sites += [(tok, ctx, calls) for tok in a["unet_attn_tokens"]]
+    sites += [(ctx, ctx, 2 * a["bert_layers"])]
+    sites += [(tok, tok, chunks) for tok in a["decoder_attn_tokens"]]
+    for nq, nk, times in sites:
+        kernel = attention_route(nq, nk)
+        if kernel is not None:
+            want[kernel] += times
     if all_kernel:
-        calls = a["unet_calls"]
         want.update(
             conv3x3_norm_silu=2 * a["res_blocks"] * calls,
             conv3x3=((1 + a["upsamples"] + 1) * calls
@@ -833,9 +1100,7 @@ def expected_launches(arch, all_kernel):
                          1 + 3 * (2 * a["res_blocks"] + a["transformers"]))
                      + a["first_stage_3x3"] * chunks),
             group_norm=((a["transformers"] + 1) * calls
-                        + a["first_stage_norms"] * chunks),
-            smalls_attention=(2 * a["transformers"] * calls
-                              + 2 * a["bert_layers"]))
+                        + a["first_stage_norms"] * chunks))
     return want
 
 
@@ -843,25 +1108,32 @@ def count(module, cls):
     return sum(isinstance(m, cls) for m in module.modules())
 
 
-def main_path_phase(card, model, label, steps):
+def main_path_phase(card, model, task, label):
+    """One path in the current configuration: launches held to the
+    architecture's, the outputs checked, a second run timed, a profile."""
+    path = PATHS[task]
     all_kernel = label == "all-kernel"
+    steps = path["all_kernel_steps" if all_kernel else "steps"]
+    name = f"{task}, {label}"
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
-    img, z, secs = drive_main_path(model, seed=0, steps=steps)
+    img, z, secs = drive_main_path(model, path, seed=0, steps=steps)
     launches = read_launches()
-    arch = architecture(model, steps)
-    if {k: arch[k] for k in T2I_ARCH} != T2I_ARCH:
-        raise AssertionError(f"the t2i model has {arch}, not {T2I_ARCH}")
+    arch = architecture(model, path, steps)
+    if {k: arch[k] for k in path["arch"]} != path["arch"]:
+        raise AssertionError(f"the {task} model has {arch}, not "
+                             f"{path['arch']}")
     want = expected_launches(arch, all_kernel)
-    log(f"main path ({label}) launches {launches}; from the architecture "
+    log(f"main path ({name}) launches {launches}; from the architecture "
         f"{arch}: {want}")
     if launches != want:
-        raise AssertionError(f"main path ({label}) launches {launches}, "
+        raise AssertionError(f"main path ({name}) launches {launches}, "
                              f"expected {want}")
     if tuple(img.shape) != (BATCH, 256, 256, 3):
         raise AssertionError(f"image shape {tuple(img.shape)}")
-    if tuple(z.shape) != (BATCH, 32, 32, 8):
-        raise AssertionError(f"latent shape {tuple(z.shape)}")
+    latent = (BATCH, model.image_size, model.image_size, model.channels)
+    if tuple(z.shape) != latent:
+        raise AssertionError(f"latent shape {tuple(z.shape)}, not {latent}")
     if not (bool(torch.isfinite(img).all()) and
             bool(torch.isfinite(z).all())):
         raise AssertionError("non-finite latent or image")
@@ -870,34 +1142,34 @@ def main_path_phase(card, model, label, steps):
         raise AssertionError(f"constant image (std {spread})")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    _, _, warm = drive_main_path(model, seed=1, steps=steps)
+    _, _, warm = drive_main_path(model, path, seed=1, steps=steps)
     for run, s in (("first run", secs), ("second run", warm)):
         total = sum(s.values())
-        log(f"main path ({label}) {run} on {card}: batch {BATCH}, PLMS "
-            f"{steps} steps x 2 stages, CFG {GUIDANCE} sequential, bf16 "
-            f"UNet: cond {s['cond']:.3f} s, sample {s['sample']:.3f} s, "
-            f"decode {s['decode']:.3f} s, total {total:.3f} s, "
-            f"{BATCH / total:.4f} img/s")
-    log(f"main path ({label}): image std {spread:.4f}, range "
+        log(f"main path ({name}) {run} on {card}: batch {BATCH}, "
+            f"{path['sampler']} {steps} steps x 2 stages, CFG {GUIDANCE} "
+            f"sequential, bf16 UNet: cond {s['cond']:.3f} s, sample "
+            f"{s['sample']:.3f} s, decode {s['decode']:.3f} s, total "
+            f"{total:.3f} s, {BATCH / total:.4f} img/s")
+    log(f"main path ({name}): image std {spread:.4f}, range "
         f"[{img.min().item():.3f}, {img.max().item():.3f}], peak device "
         f"memory {peak_gib:.2f} GiB")
-    profile_phase(model, label)
+    profile_phase(model, path, name)
     return launches
 
 
-def build_main_model():
+def build_main_model(config):
     t0 = time.perf_counter()
-    model = instantiate_from_config(load_yaml(str(T2I))["model"], seed=0)
+    model = instantiate_from_config(load_yaml(str(config))["model"], seed=0)
     n_zero = randomize_zero_init_(model, 1)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"main path model: {T2I.relative_to(REPO)}, {n_params} parameters, "
-        f"{n_zero} zero-init convs randomised, built in "
+    log(f"main path model: {config.relative_to(REPO)}, {n_params} "
+        f"parameters, {n_zero} zero-init convs randomised, built in "
         f"{time.perf_counter() - t0:.2f} s")
     return model
 
 
-def profile_phase(model, label):
+def profile_phase(model, path, name):
     """Where the main path's time goes: device busy share and the heaviest
     kernels of a short run under torch.profiler (which slows the host, so
     the idle share it gives is an upper bound), then one UNet call and the
@@ -907,17 +1179,18 @@ def profile_phase(model, label):
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, secs = drive_main_path(model, seed=2, steps=PROFILE_STEPS)
+        _, _, secs = drive_main_path(model, path, seed=2,
+                                     steps=PROFILE_STEPS)
     wall = sum(secs.values())
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-    unet_calls = 2 * 2 * (PROFILE_STEPS + 1)
+    calls = unet_calls(model, path["sampler"], PROFILE_STEPS)
     if kernels:
         busy = sum(e.self_device_time_total for e in kernels) / 1e6
-        log(f"profile ({label}; batch {BATCH}, PLMS {PROFILE_STEPS}, "
-            f"{unet_calls} "
-            f"UNet calls, decode): wall {wall:.3f} s under the profiler, "
-            f"device busy {busy:.3f} s, idle share {1 - busy / wall:.3f}, "
+        log(f"profile ({name}; batch {BATCH}, {path['sampler']} "
+            f"{PROFILE_STEPS}, {calls} UNet calls, decode): wall "
+            f"{wall:.3f} s under the profiler, device busy {busy:.3f} s, "
+            f"idle share {1 - busy / wall:.3f}, "
             f"{sum(e.count for e in kernels)} kernel launches")
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total
                         )[:10]:
@@ -928,42 +1201,67 @@ def profile_phase(model, label):
             "share not measured")
 
     unet = model.model.diffusion_model
-    x = seeded((BATCH, 32, 32, 8), 30, torch.bfloat16)
+    side, first = model.image_size, model.embed_dim_list[0]
+    x = seeded((BATCH, side, side, model.channels), 30, torch.bfloat16)
     t = torch.full((BATCH,), 500, device="cuda")
     with torch.no_grad():
         ctx = model.get_learned_conditioning(
-            np.zeros((BATCH, CTX_LEN), np.int64)).to(torch.bfloat16)
-        tables = model.spade_tables(x[..., :4], 1)
+            np.zeros((BATCH, path["ctx_len"]), np.int64)).to(torch.bfloat16)
+        tables = model.spade_tables(x[..., :first], 1)
         call_ms = cuda_ms(lambda: model.apply_model(x, t, ctx, 1, tables),
                           reps=5)
         cast_ms = cuda_ms(lambda: [p.to(torch.bfloat16)
                                    for p in unet.parameters()], reps=5)
-    log(f"UNet call ({label}; batch {BATCH}, bf16, stage 1): "
+    log(f"UNet call ({name}; batch {BATCH}, bf16, stage 1): "
         f"{call_ms:.3f} ms; "
         f"casting its {sum(1 for _ in unet.parameters())} weight tensors "
         f"to bf16 alone: {cast_ms:.3f} ms")
 
 
 def main():
+    start = time.perf_counter()
+    seconds = {}
+
+    def mark(phase):
+        seconds[phase] = round(time.perf_counter() - start - sum(
+            seconds.values()), 1)
+
     card = setup()
+    mark("setup and kernel build")
     rows = [flash_phase(), vq_phase()]
     rows += [group_norm_phase(), smalls_phase(), conv3x3_norm_silu_phase(),
              conv3x3_phase()]
+    mark("kernel phases")
     toy_phase("default")
     with all_kernels():
         toy = toy_phase("all-kernel")
     if not all(toy[name] > 0 for name in KERNELS):
         raise AssertionError(f"toy all-kernel run launched {toy}")
+    sampler_phase()
+    mark("toy phases")
 
-    model = build_main_model()
+    model = build_main_model(T2I)
     unet_conv_sum_phase(model)
-    default = main_path_phase(card, model, "default", STEPS)
+    default = main_path_phase(card, model, "t2i", "default")
     with all_kernels():
-        opt_in = main_path_phase(card, model, "all-kernel", ALL_KERNEL_STEPS)
+        opt_in = main_path_phase(card, model, "t2i", "all-kernel")
+    mark("t2i paths")
+    del model
+    torch.cuda.empty_cache()
+    model = build_main_model(L2I)
+    other = layout2i_sites_phase(model)
+    mark("layout2i sites")
+    main_path_phase(card, model, "layout2i", "default")
+    with all_kernels():
+        main_path_phase(card, model, "layout2i", "all-kernel")
+    mark("layout2i paths")
     for row in rows:
         path = default if row["name"] in ("flash_attention", "vq_argmin") \
             else opt_in
         row["launches"] = path[row["name"]]
+    log(f"phase seconds on {card}: {seconds}, total "
+        f"{time.perf_counter() - start:.1f}")
+    log(json.dumps({"other_sites": other}))
     log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -7,12 +7,14 @@ decode side) and ``cond_stage_model`` (the BERT encoder), so a state dict
 made by ``frido_tpu_torch/io/jax_weights.py`` loads with ``strict=True``.
 
 Public methods keep the JAX package's layout: latents NHWC
-[B, 32, 32, 8], images NHWC [B, 256, 256, 3]. The model lives on
+[B, H, W, C] (t2i f16f8: [B, 32, 32, 8]; layout2i f8f4: [B, 64, 64, 6]),
+images NHWC [B, 256, 256, 3]. The model lives on
 ``device``: ``cuda`` unless the caller passes another (``"cpu"`` in the
 tests, ``"meta"`` for shapes only).
 
-Not ported yet: training (losses, ``q_sample``), encode, the DDIM /
-DPM-Solver++ / vanilla samplers, tiled (``split_input_params``) inference,
+``sample`` runs the JAX package's four samplers (PLMS, DDIM,
+DPM-Solver++(2M), the full-T vanilla chain). Not ported yet: training
+(losses, ``q_sample``), encode, tiled (``split_input_params``) inference,
 checkpoint loading and the image-log galleries.
 """
 
@@ -187,23 +189,31 @@ class FridoDiffusion(nn.Module):
 
     @torch.no_grad()
     def sample(self, batch_size: int, context=None, uncond_context=None,
-               steps: int = 200, guidance_scale: float = 1.0,
+               steps: int = 200, eta: float = 1.0,
+               guidance_scale: float = 1.0, sampler: str = "plms",
+               x_T: Optional[torch.Tensor] = None,
                x_init: Optional[torch.Tensor] = None, compute_dtype=None,
                cfg_mode: str = "batched",
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """The coarse-to-fine chain; returns the scaled NHWC latent.
+        """The coarse-to-fine chain (``models/frido.py:548-599``); returns
+        the scaled NHWC latent.
 
-        ``compute_dtype`` (``torch.bfloat16`` on the card) runs the UNet in
-        that dtype while the update math and schedule stay fp32; the SPADE
-        tables are computed once per stage (``models/frido.py:548-599``).
+        ``sampler``: ``plms``, ``ddim``, ``dpmpp`` or ``vanilla`` (the
+        full-T chain; ``steps`` is then unused). ``eta`` must be 0 for PLMS
+        and DPM-Solver++. ``x_T`` is adopted as a finished stage 0;
+        ``x_init`` is the initial noise. Every random number comes from
+        ``generator`` (``diffusion/samplers.py``). ``compute_dtype``
+        (``torch.bfloat16`` on the card) runs the UNet in that dtype while
+        the update math and schedule stay fp32; the SPADE tables are
+        computed once per stage.
         """
         shape = (batch_size, self.image_size, self.image_size, self.channels)
         cfg = samplers.SamplerConfig(
-            schedule=self.schedule, num_steps=steps,
+            schedule=self.schedule, num_steps=steps, eta=eta,
             guidance_scale=guidance_scale,
             embed_dim_list=tuple(self.embed_dim_list),
             specify_channels=tuple(self.specify_channels),
-            num_stage=self.num_stage, cfg_mode=cfg_mode)
+            num_stage=self.num_stage, kind=sampler, cfg_mode=cfg_mode)
         cd = compute_dtype
         if cd is not None:
             context = None if context is None else context.to(cd)
@@ -222,9 +232,10 @@ class FridoDiffusion(nn.Module):
                 x_cond = x_cond if cd is None else x_cond.to(cd)
                 return self.spade_tables(x_cond, stage)
 
-        if x_init is not None:
-            x_init = x_init.to(self.device, torch.float32)
+        def on_device(t):
+            return None if t is None else t.to(self.device, torch.float32)
+
         return samplers.sample(cfg, eps_model, shape, context, uncond_context,
-                               x_init=x_init, generator=generator,
-                               device=self.device,
+                               x_T=on_device(x_T), x_init=on_device(x_init),
+                               generator=generator, device=self.device,
                                stage_invariants=stage_invariants)

@@ -658,3 +658,90 @@ def test_vq_kernel_is_deterministic(cuda):
     z = _randn((32768, 4), 310, cuda)
     e = _randn((8192, 4), 311, cuda)
     assert torch.equal(vq_argmin(z, e), vq_argmin(z, e))
+
+
+# ---------------------------------------------------------------------------
+# the layout2i f8f4 sites (configs/frido/layout2i/frido_f8f4_coco_seg.yaml):
+# the decoder's attention at 64^2 (4096 tokens, d = 512, fp32), the UNet's
+# one-head self-attention at 32^2 (1024 tokens, d = 384, bf16), the D = 3
+# codebooks of 4096 codes over a 64^2 latent grid, the UNet's 64^2 x 192
+# level at batch 4
+
+
+@pytest.mark.parametrize("bh,nq,nk,d,dtype", [
+    (4, 4096, 4096, 512, torch.float32),    # decoder AttnBlock, batch 4
+    (4, 1024, 1024, 384, torch.bfloat16),   # UNet self-attention at 32^2
+])
+def test_flash_kernel_at_the_layout2i_sites(cuda, bh, nq, nk, d, dtype):
+    ok, err = _attn_case(flash_attention,
+                         *_qkv(bh, nq, nk, d, dtype, cuda, seed=90),
+                         d ** -0.5)
+    assert ok, err
+
+
+@pytest.mark.parametrize("bh,nq,nk,d,dtype", [
+    (4, 256, 256, 576, torch.bfloat16),    # UNet at 16^2
+    (4, 256, 96, 576, torch.bfloat16),     # cross-attention over 96 tokens
+    (4, 64, 96, 960, torch.bfloat16),      # 8^2
+    (32, 96, 96, 64, torch.float32),       # BERT over 96 tokens
+])
+def test_smalls_kernel_at_the_layout2i_sites(cuda, bh, nq, nk, d, dtype):
+    ok, err = _attn_case(smalls_attention,
+                         *_qkv(bh, nq, nk, d, dtype, cuda, seed=95),
+                         d ** -0.5)
+    assert ok, err
+
+
+@pytest.mark.parametrize("n", [4 * 64 * 64, 32 * 64 * 64])
+def test_vq_kernel_at_the_layout2i_sites(cuda, n):
+    """Batch 4 and the decode chunk of 32, against 4096 codes of D = 3."""
+    z = _randn((n, 3), 110, cuda)
+    e = _randn((4096, 3), 111, cuda)
+    before = vq_argmin.launches
+    got = vq_argmin(z, e)
+    torch.cuda.synchronize()
+    assert vq_argmin.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    assert _margin_ok(z, e, got, vq_argmin_plain(z, e))
+
+
+@pytest.mark.parametrize("shape,cout", [
+    ((4, 3, 64, 64), 192),      # pre_input and pre_input_cond: Cin = 3
+    ((4, 192, 64, 64), 192),
+    ((4, 192, 64, 64), 128),    # SPADE mlp_shared
+    ((4, 128, 64, 64), 192),    # SPADE gamma / beta
+    ((4, 192, 64, 64), 3),      # out head: Cout = 3
+])
+def test_conv3x3_kernel_at_the_layout2i_unet_sites(cuda, shape, cout):
+    ok, err = _conv_case(*_conv_inputs(shape, cout, cuda, torch.bfloat16,
+                                       seed=120))
+    assert ok, err
+
+
+@pytest.mark.parametrize("shape,spade", [
+    ((4, 192, 64, 64), False),   # stage 0
+    ((4, 192, 64, 64), True),    # stage 1
+    ((4, 384, 64, 64), True),    # output blocks: the skip concatenated
+])
+def test_conv3x3_norm_silu_kernel_at_the_layout2i_unet_sites(cuda, shape,
+                                                             spade):
+    ok, err, _ = _fused_case(shape, 192, spade, 32, torch.bfloat16, cuda,
+                             seed=130)
+    assert ok, err
+
+
+@pytest.mark.parametrize("eps,silu", [(1e-5, True), (1e-6, False)])
+def test_group_norm_kernel_at_the_layout2i_unet_site(cuda, eps, silu):
+    """The out head's GroupNorm + SiLU at 64^2 x 192 (bf16)."""
+    shape = (4, 192, 64, 64)
+    x = _randn(shape, 140, cuda, torch.bfloat16)
+    w = 1.0 + 0.1 * _randn((192,), 141, cuda)
+    b = 0.1 * _randn((192,), 142, cuda)
+    before = group_norm.launches
+    got = group_norm(x, w, b, 32, eps, silu)
+    torch.cuda.synchronize()
+    assert group_norm.launches == before + 1
+    want = group_norm_plain(x.float(), w, b, 32, eps, silu)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    ok, err = _within(got, want, 5e-5, torch.bfloat16)
+    assert ok, err

@@ -215,7 +215,7 @@ def test_slice_tokens_to_image_matches_jax(models, cfg_mode):
         eta=0.0, guidance_scale=1.5, sampler="plms", x_init=x,
         cfg_mode=cfg_mode))(jparams, ctx_j, uctx_j, jnp.asarray(x_init))
     z_p = port.sample(2, context=ctx_p, uncond_context=uctx_p, steps=4,
-                      guidance_scale=1.5, x_init=_t(x_init),
+                      eta=0.0, guidance_scale=1.5, x_init=_t(x_init),
                       cfg_mode=cfg_mode)
     z_j = np.asarray(z_j)
     assert z_p.shape == (2, 16, 16, 8)

@@ -180,7 +180,7 @@ def test_slice_tokens_to_image_matches_jax_under_the_switches(
     np.testing.assert_allclose(ctx_p.numpy(), np.asarray(ctx_j), atol=1e-4,
                                rtol=0)
     z_p = port.sample(2, context=ctx_p, uncond_context=uctx_p, steps=4,
-                      guidance_scale=1.5, x_init=_t(x_init),
+                      eta=0.0, guidance_scale=1.5, x_init=_t(x_init),
                       cfg_mode="sequential")
     assert z_p.shape == (2, 16, 16, 8)
     assert np.abs(z_j - x_init).max() > 1e-2
