@@ -14,6 +14,12 @@ decoder):
   64^2 x 6 latent (D = 3 codebooks of 4096; the decoder attends over 4096
   tokens, the UNet over 1024 at 32^2).
 
+Beside them, each path's first stage encodes 256^2 images at batch 4 in
+fp32 (``encode_first_stage``: the MS-VQGAN encoder, the cross-scale fusion
+heads and both codebooks) and decodes the latent again, and the MS-VQGAN of
+``configs/msvqgan/msvqgan_f16f8_coco.yaml`` (the t2i first stage's
+architecture) runs its training forward ``forward_with_aux`` at batch 4.
+
 Weights are random, made from a seed; the zero-initialised output convs get
 a seeded random init too, so the UNet does not predict 0. Each path runs
 twice: in the default configuration (flash attention and the VQ argmin on
@@ -33,25 +39,35 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    configurations; then each sampler (PLMS, DDIM with eta 1,
    DPM-Solver++(2M), the full-T vanilla chain over a schedule cut to 40
    timesteps) on the toy model, card against CPU, the noise drawn from a
-   CPU generator seeded alike for both;
+   CPU generator seeded alike for both; then the toy's encode,
+   round trip and ``forward_with_aux``, card against CPU, in both
+   configurations;
 4. the t2i path in each configuration, with every kernel's launch count
    set to 0 just before and read just after, and held to the count the
    architecture and the sampler give;
-5. the layout2i sites: every distinct kernel call of one all-kernel pass
+5. the t2i encode sites: every distinct kernel call of one all-kernel
+   ``encode_first_stage`` at batch 4, recorded where the port calls the
+   wrappers, each checked and timed as in 2 (the "other sites"); then the
+   t2i first stage in each configuration: encode and decode with their
+   launches held to the architecture's, the round-trip invariant (the
+   re-quantized diffusion latent gives encode's codes and image), times,
+   peak memory and a profile of one encode; then ``forward_with_aux`` of
+   the MS-VQGAN config in each configuration, held alike;
+6. the layout2i sites: every distinct kernel call of one all-kernel pass
    of the layout2i model at batch 4 (conditioning, a UNet call per stage,
-   decode), recorded where the port calls the wrappers, and flash and the
-   VQ argmin at the decode chunk of 32, each checked and timed as in 2
-   (the "other sites"); then the layout2i path in each configuration,
-   as in 4.
+   decode) and of its encode, and flash and the VQ argmin at the decode
+   chunk of 32, each checked as in 5 unless checked before (in 2 or an
+   earlier pass); then the layout2i path in each configuration, as in 4,
+   and its first stage, as in 5.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit; before that, one ``{"kernels": [...]}``
 line (the launches: the t2i path's), and before that one
-``{"other_sites": [...]}`` line (each site as the arguments of its
-check: attention (bh, nq, nk, d, dtype), VQ (n, k, d), GroupNorm (shape,
-dtype, groups, eps, silu), conv (shape, cout, dtype), fused conv (shape,
-cout, dtype, spade, groups, eps)). Without CUDA, or outside the repository,
-it exits non-zero and prints no result.
+``{"other_sites": [...]}`` line (each site with the pass that made it and
+the arguments of its check: attention (bh, nq, nk, d, dtype), VQ (n, k,
+d), GroupNorm (shape, dtype, groups, eps, silu), conv (shape, cout,
+dtype), fused conv (shape, cout, dtype, spade, groups, eps)). Without
+CUDA, or outside the repository, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -89,6 +105,8 @@ from frido_tpu_torch.nn.quantize import VectorQuantizer  # noqa: E402
 from frido_tpu_torch.nn.transformer import SpatialTransformer  # noqa: E402
 from frido_tpu_torch.nn.vqgan import AttnBlock  # noqa: E402
 from frido_tpu_torch.nn.xtransformer import XAttention  # noqa: E402
+from frido_tpu_torch.ops.image import (  # noqa: E402
+    interpolate_nearest_2x, to_nchw, to_nhwc)
 from frido_tpu_torch.ops.cuda import build, dispatch  # noqa: E402
 from frido_tpu_torch.ops.cuda.attention import (  # noqa: E402
     attention_plain, flash_attention, flash_plan, smalls_attention,
@@ -105,6 +123,7 @@ from frido_tpu_torch.tools.attention_ab import graph_ms  # noqa: E402
 
 T2I = REPO / "configs" / "frido" / "t2i" / "frido_f16f8_coco.yaml"
 L2I = REPO / "configs" / "frido" / "layout2i" / "frido_f8f4_coco_seg.yaml"
+MSVQ = REPO / "configs" / "msvqgan" / "msvqgan_f16f8_coco.yaml"
 
 # Published peaks of one H100 SXM (dense, at the 700 W limit).
 PEAK_FP32_FLOPS = 67e12      # fp32 outside the tensor cores
@@ -132,6 +151,27 @@ T2I_ARCH = dict(res_blocks=22, transformers=16, upsamples=3, bert_layers=32,
 L2I_ARCH = dict(res_blocks=22, transformers=16, upsamples=3, bert_layers=32,
                 first_stage_3x3=26, first_stage_norms=27, first_stage_attn=4,
                 codebooks=2)
+# the encode side of the t2i first stage (the MS-VQGAN of
+# configs/msvqgan/msvqgan_f16f8_coco.yaml too): a five-level trunk (ch_mult
+# [1, 1, 2, 2, 4], 2 ResnetBlocks a level) with 2 AttnBlocks at 32^2, two
+# heads (mid block, attn, block; norm_out; conv_out) on the 32^2 x 256 and
+# 16^2 x 512 taps, and the fusion's shared decoder (conv_in, mid, one level
+# of 3 ResnetBlocks, norm_out, conv_out at 128 channels over the 32^2
+# grid): 31 + 12 3x3 convs (conv_in, 2 per ResnetBlock x 14, 2 conv_out;
+# 2 x 5 + 2), 34 + 12 GroupNorms (2 per ResnetBlock, 1 per AttnBlock, 2
+# norm_out; 2 x 5 + 1 + 1), attention over 1024 tokens (trunk x 2, head 0,
+# shared decoder) and 256 (head 1)
+T2I_ENCODE_ARCH = dict(encode_3x3=43, encode_norms=46,
+                       encode_attn_tokens=[1024, 1024, 1024, 256, 1024],
+                       codebooks=2)
+# layout2i f8f4: a four-level trunk (ch_mult [1, 1, 2, 4]) with 2
+# AttnBlocks at 64^2, heads on the 64^2 x 256 and 32^2 x 512 taps, the
+# shared decoder over the 64^2 grid: 27 + 12 3x3 convs, 30 + 12 GroupNorms,
+# attention over 4096 tokens (trunk x 2, head 0, shared decoder) and 1024
+# (head 1)
+L2I_ENCODE_ARCH = dict(encode_3x3=39, encode_norms=42,
+                       encode_attn_tokens=[4096, 4096, 4096, 1024, 4096],
+                       codebooks=2)
 GUIDANCE = 1.5
 DECODE_CHUNK = 32
 CTX_LEN = 77
@@ -143,10 +183,11 @@ CTX_LEN = 77
 # dpmpp default of 25), the architecture's counts.
 PATHS = {
     "t2i": dict(config=T2I, ctx_len=CTX_LEN, token_high=1, sampler="plms",
-                eta=0.0, steps=20, all_kernel_steps=20, arch=T2I_ARCH),
+                eta=0.0, steps=20, all_kernel_steps=20, arch=T2I_ARCH,
+                encode_arch=T2I_ENCODE_ARCH),
     "layout2i": dict(config=L2I, ctx_len=96, token_high=1024,
                      sampler="dpmpp", eta=0.0, steps=25, all_kernel_steps=10,
-                     arch=L2I_ARCH),
+                     arch=L2I_ARCH, encode_arch=L2I_ENCODE_ARCH),
 }
 PROFILE_STEPS = 4   # a short chain under torch.profiler, for the breakdown
 # the samplers' toy phase: the toy schedule cut to 40 timesteps (the
@@ -198,6 +239,8 @@ CONV_ATOL_RMS = 1e-4       # of the output's RMS: K <= 17280 fp32 terms
 FUSED_BF16_ATOL_RMS = 2.0 ** -6
 TOY_LATENT_ATOL = 1e-3     # ten fp32 UNet calls per stage, CPU vs card sums
 TOY_IMAGE_ATOL = 1e-3      # fp32 decoder, cuDNN vs CPU conv sum order
+TOY_ENCODE_ATOL = 1e-4     # fp32 encoder latents, CPU vs card sums
+ROUND_TRIP_ATOL = 1e-5     # one decode of one quantized latent, twice
 
 
 def log(*parts):
@@ -560,10 +603,16 @@ SITE_CHECKS = {
 }
 
 
+# every site checked so far, {kernel: {arguments of its site check}}: the
+# "other sites" check each site once
+CHECKED = {name: set() for name in SITE_CHECKS}
+
+
 def phase_row(name, sites):
     """Check and time the kernel ``name`` at each site (the arguments of
     its site check); the first site gives its row of the kernels line."""
     results = [SITE_CHECKS[name](*site) for site in sites]
+    CHECKED[name].update(sites)
     err, ms, plain_ms, bounded, library_ms = results[0]
     source, replaces = KERNEL_SOURCES[name]
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -651,12 +700,10 @@ def conv3x3_norm_silu_phase():
     ])
 
 
-def record_sites(model, path):
-    """Every distinct kernel call of one pass of ``path`` at this script's
-    batch in the current configuration: both conditionings, one UNet call
-    in each stage (with its SPADE tables after the first) and the decode,
-    recorded where the port calls the six wrappers. Returns {kernel:
-    {arguments of its site check}}."""
+def record_sites(run):
+    """Every distinct kernel call made while ``run()`` drives a model in the
+    current configuration, recorded where the port calls the six wrappers.
+    Returns {kernel: {arguments of its site check}}."""
     from frido_tpu_torch.nn import layers, transformer
     from frido_tpu_torch.ops import vq as ops_vq
 
@@ -696,54 +743,84 @@ def record_sites(model, path):
                (ops_vq, "vq_argmin", vq), (layers, "group_norm", norm),
                (layers, "conv3x3", conv), (layers, "conv3x3_norm_silu", fused)]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
-    side, device = model.image_size, model.device
-    x = seeded((BATCH, side, side, model.channels), 32, torch.bfloat16,
-               device)
-    t = torch.full((BATCH,), 500, device=device)
     try:
         for mod, attr, fn in patches:
             setattr(mod, attr, fn)
         with torch.no_grad():
-            ctx = model.get_learned_conditioning(np.zeros(
-                (BATCH, path["ctx_len"]), np.int64)).to(torch.bfloat16)
-            for stage in range(model.num_stage):
-                frozen = sum(model.embed_dim_list[:stage])
-                tables = (model.spade_tables(x[..., :frozen], stage)
-                          if stage else None)
-                model.apply_model(x, t, ctx, stage, tables)
-            model.decode_first_stage(x.float(), chunk=DECODE_CHUNK)
+            run()
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
     return found
 
 
-def layout2i_sites_phase(model):
-    """Every kernel site of the layout2i path, taken from the model: each
-    distinct kernel call of one all-kernel pass at this script's batch
-    (``record_sites``), and flash and the VQ argmin at the decode chunk of
-    32, each against its plain version with the tolerances above. Returns
-    one "other sites" entry per site."""
+def sampling_pass(model, path):
+    """One pass of ``path`` at this script's batch: both conditionings, one
+    UNet call in each stage (with its SPADE tables after the first) and
+    the decode."""
+    side, device = model.image_size, model.device
+    x = seeded((BATCH, side, side, model.channels), 32, torch.bfloat16,
+               device)
+    t = torch.full((BATCH,), 500, device=device)
+    ctx = model.get_learned_conditioning(np.zeros(
+        (BATCH, path["ctx_len"]), np.int64)).to(torch.bfloat16)
+    for stage in range(model.num_stage):
+        frozen = sum(model.embed_dim_list[:stage])
+        tables = (model.spade_tables(x[..., :frozen], stage)
+                  if stage else None)
+        model.apply_model(x, t, ctx, stage, tables)
+    model.decode_first_stage(x.float(), chunk=DECODE_CHUNK)
+
+
+def seeded_images(seed, device="cuda"):
+    """A batch of 256^2 RGB images in [-1, 1], the first stage's input
+    range."""
+    return seeded((BATCH, 256, 256, 3), seed, device=device).tanh()
+
+
+def check_sites(found, label):
+    """Check and time each site of ``found`` not checked before against its
+    plain version with the tolerances above; returns one "other sites"
+    entry per site, labelled with the pass that made it."""
+    sites = []
+    for name in KERNELS:
+        for site in sorted(found[name] - CHECKED[name], key=str):
+            err, ms, plain_ms, bounded, library_ms = SITE_CHECKS[name](*site)
+            CHECKED[name].add(site)
+            sites.append({
+                "name": name, "site": str(site).replace("torch.", ""),
+                "pass": label, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bounded[0],
+                "bound_by": bounded[1], "library_ms": library_ms})
+    log(f"{label} sites: {len(sites)} checked "
+        f"({ {n: len(found[n]) for n in KERNELS} } distinct calls)")
+    return sites
+
+
+def encode_sites_phase(model, label):
+    """Every distinct kernel call of one all-kernel ``encode_first_stage``
+    at this script's batch, each checked as in ``check_sites``."""
+    x = seeded_images(33)
     with all_kernels():
-        found = record_sites(model, PATHS["layout2i"])
+        found = record_sites(lambda: model.encode_first_stage(x))
+    return check_sites(found, label)
+
+
+def layout2i_sites_phase(model):
+    """Every kernel site of the layout2i sampling path, taken from the
+    model: each distinct kernel call of one all-kernel pass at this
+    script's batch (``sampling_pass``), and flash and the VQ argmin at the
+    decode chunk of 32, each against its plain version with the
+    tolerances above. Returns one "other sites" entry per site."""
+    with all_kernels():
+        found = record_sites(lambda: sampling_pass(model, PATHS["layout2i"]))
     for name, site in L2I_NAMED_SITES:
         if site not in found[name]:
             raise AssertionError(f"the layout2i pass made no {name} call at "
                                  f"{site}: {sorted(found[name], key=str)}")
     found["flash_attention"].add(L2I_CHUNK_FLASH)
     found["vq_argmin"].add(L2I_CHUNK_VQ)
-    sites = []
-    for name in KERNELS:
-        for site in sorted(found[name], key=str):
-            err, ms, plain_ms, bounded, library_ms = SITE_CHECKS[name](*site)
-            sites.append(dict(
-                name=name, site=str(site).replace("torch.", ""),
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bounded[0], bound_by=bounded[1],
-                library_ms=library_ms))
-    log(f"layout2i sites: {len(sites)} checked "
-        f"({ {n: len(s) for n, s in found.items()} })")
-    return sites
+    return check_sites(found, "layout2i sampling")
 
 
 def unet_conv_sites(model):
@@ -838,30 +915,30 @@ def read_launches():
 def toy_config():
     """The t2i configuration cut to toy widths; the decoder keeps one
     1024-token attention (so the flash kernel runs) and the real
-    8192-entry codebooks."""
+    8192-entry codebooks. The encoder maps 64^2 images to the 32^2 latent:
+    a three-level trunk with attention at 32^2, heads on the 32^2 and 16^2
+    taps (1024 and 256 tokens), the shared decoder at its fixed width."""
     cfg = copy.deepcopy(load_yaml(str(T2I))["model"])
     p = cfg["params"]
     p["image_size"] = 32
     p["unet_config"]["params"].update(
         model_channels=32, channel_mult=[1, 2], num_res_blocks=1,
         attention_resolutions=[2], num_head_channels=16, context_dim=32)
-    p["first_stage_config"]["params"]["ddconfig"].update(
-        ch=32, ch_mult=[1, 1], num_res_blocks=1, attn_resolutions=[32],
-        resolution=64)
+    first = p["first_stage_config"]["params"]
+    first["ddconfig"].update(ch=32, ch_mult=[1, 1], num_res_blocks=1,
+                             attn_resolutions=[32], resolution=64)
+    first["edconfig"].update(ch=32, ch_mult=[1, 1, 2], num_res_blocks=1,
+                             attn_resolutions=[32], resolution=64)
     p["cond_stage_config"]["params"].update(n_embed=32, n_layer=1)
     return cfg
+
 
 
 def toy_phase(label):
     """The toy model on the card (kernels) against the same weights on the
     CPU (plain versions), in the current configuration; returns the
     launches of the card run."""
-    cfg = toy_config()
-    cpu = instantiate_from_config(cfg, device="cpu", seed=1)
-    randomize_zero_init_(cpu, 2)
-    gpu = instantiate_from_config(cfg, seed=1)
-    gpu.load_state_dict(cpu.state_dict(), strict=True)
-
+    cpu, gpu = toy_models(toy_config())
     tokens = np.random.default_rng(3).integers(0, 30522, (2, CTX_LEN))
     x_init = seeded((2, 32, 32, 8), 4, device="cpu")
     latents = []
@@ -882,7 +959,7 @@ def toy_phase(label):
     # compared from the CPU's codes, so that a near-tie code flip between
     # the two argmins cannot reach the image comparison
     z = cpu._scale_latent(latents[0], invert=True)
-    n_attn = sum(isinstance(m, AttnBlock) for m in gpu.modules())
+    n_attn = count(gpu.first_stage_model.decoder, AttnBlock)
     fl0, vq0 = flash_attention.launches, vq_argmin.launches
     with torch.no_grad():
         _, codes_c = cpu.first_stage_model.decode_interface(
@@ -893,28 +970,10 @@ def toy_phase(label):
     if got != (n_attn, 2):
         raise AssertionError(f"toy decode launched (flash, VQ) {got}, "
                              f"expected ({n_attn}, 2)")
-    decided = 0
-    for i, (cc, cg) in enumerate(zip(codes_c, codes_g)):
-        book = cpu.first_stage_model.ms_quantize[i].embedding.weight.double()
-        zz = z[..., 4 * i:4 * i + 4].reshape(-1, 4).double()
-        dist = (book * book).sum(1)[None] - 2 * zz @ book.t()
-        top2 = dist.topk(2, dim=1, largest=False).values
-        keep = (top2[:, 1] - top2[:, 0]) > 1e-5
-        decided += int(keep.sum())
-        if not bool((cc.reshape(-1)[keep] == cg.cpu().reshape(-1)[keep])
-                    .all()):
-            raise AssertionError(f"toy codes of scale {i} differ at a "
-                                 f"decided row")
-    quant = torch.cat([
-        cpu.first_stage_model.ms_quantize[i].embedding.weight[codes_c[i].long()]
-        for i in (1, 0)], dim=-1).permute(0, 3, 1, 2).contiguous()
-    with torch.no_grad():
-        img_c = cpu.first_stage_model.decode(quant)
-        img_g = gpu.first_stage_model.decode(quant.cuda()).cpu()
-    img_err = (img_c - img_g).abs().max().item()
-    if not img_err <= TOY_IMAGE_ATOL:
-        raise AssertionError(f"toy image card vs CPU {img_err} > "
-                             f"{TOY_IMAGE_ATOL}")
+    decided = check_codes(cpu.first_stage_model, codes_c, codes_g,
+                          [z[..., :4], z[..., 4:]])
+    img_c, img_err = images_from_cpu_codes(cpu.first_stage_model,
+                                           gpu.first_stage_model, codes_c)
     launches = read_launches()
     log(f"toy model card vs CPU ({label}): latent max_abs_err {lat_err:.3e} "
         f"(tol {TOY_LATENT_ATOL}), codes equal at {decided} decided rows, "
@@ -922,6 +981,126 @@ def toy_phase(label):
         f"[{img_c.min().item():.3f}, {img_c.max().item():.3f}], launches "
         f"{launches}")
     return launches
+
+
+def images_from_cpu_codes(fc, fg, codes):
+    """Decode the quantized latent of the CPU's ``codes`` on the CPU's
+    first stage ``fc`` and the card's ``fg``; raise unless the images agree
+    within ``TOY_IMAGE_ATOL``. Returns (CPU image, max error)."""
+    quant = torch.cat([fc.ms_quantize[i].embedding.weight[codes[i].long()]
+                       for i in reversed(range(len(codes)))], dim=-1)
+    with torch.no_grad():
+        img_c = fc.decode(quant)
+        img_g = fg.decode(quant.cuda()).cpu()
+    err = (img_c - img_g).abs().max().item()
+    if not err <= TOY_IMAGE_ATOL:
+        raise AssertionError(f"toy image card vs CPU {err} > "
+                             f"{TOY_IMAGE_ATOL}")
+    return img_c, err
+
+
+def toy_models(cfg):
+    """The same seeded toy model on the CPU and on the card."""
+    cpu = instantiate_from_config(cfg, device="cpu", seed=1)
+    randomize_zero_init_(cpu, 2)
+    gpu = instantiate_from_config(cfg, seed=1)
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    return cpu, gpu
+
+
+def check_codes(first_stage, codes_c, codes_g, latents):
+    """Raise unless the CPU's and the card's codes agree at every row
+    whose best and second-best distances (float64, from the CPU latent of
+    each scale) differ by more than 1e-5; returns the count of such rows."""
+    decided = 0
+    for i, (cc, cg, zz) in enumerate(zip(codes_c, codes_g, latents)):
+        book = first_stage.ms_quantize[i].embedding.weight.double().cpu()
+        zz = zz.reshape(-1, book.shape[1]).double().cpu()
+        dist = (book * book).sum(1)[None] - 2 * zz @ book.t()
+        top2 = dist.topk(2, dim=1, largest=False).values
+        keep = (top2[:, 1] - top2[:, 0]) > VQ_DIST_ATOL
+        decided += int(keep.sum())
+        if not bool((cc.cpu().reshape(-1)[keep]
+                     == cg.cpu().reshape(-1)[keep]).all()):
+            raise AssertionError(f"codes of scale {i} differ at a decided "
+                                 f"row")
+    return decided
+
+
+def toy_encode_phase(label):
+    """The toy model's encode side on the card against the CPU, in the
+    current configuration: ``encode_first_stage``, the round trip through
+    ``decode_first_stage``, and ``forward_with_aux`` (``MSFPNVQModel``'s
+    training forward) of its first stage. Every code is held to the margin
+    rule, and the CPU goes on from the card's codes, so that a near tie the
+    two sums break apart cannot reach a later comparison: the coarse latent
+    and codes; the fine latent from the card's coarse codes (the fusion
+    heads) and its codes; the diffusion latent; the images and codebook
+    loss of ``forward_with_aux``, decoded on the CPU from the card's
+    quantized latent; the round trip's codes, and its image decoded from
+    the CPU's codes on both."""
+    cpu, gpu = toy_models(toy_config())
+    fc, fg = cpu.first_stage_model, gpu.first_stage_model
+    x = seeded((2, 64, 64, 3), 6, device="cpu").tanh()
+    xg = x.cuda()
+    with torch.no_grad():
+        (h0, q0, _, i0), (h1, _, _, i1) = fg._fused_prequant(to_nchw(xg))
+        z_g = gpu.encode_first_stage(xg)
+        quant_g, _, _ = fg.encode(xg)
+        dec_g, aux_g, loss_g, _ = fg.forward_with_aux(xg)
+        fine_tap, coarse_tap = fc.encoder(to_nchw(x))
+        h0_c = fc.ms_quant_conv[0](coarse_tap)
+        fused = fc.shared_decoder[0](torch.cat([fc.shared_post_quant_conv[0](
+            fc.upsample[0](q0.cpu())), fine_tap], dim=1))
+        h1_c = fc.ms_quant_conv[1](fused)
+        pre = [to_nhwc(h0_c), to_nhwc(h1_c)]
+        (_, loss0, c0), (_, loss1, c1) = (fc.ms_quantize[i](pre[i])
+                                          for i in (0, 1))
+    decided = check_codes(fc, [c0, c1], [i0, i1], pre)
+    z_c = cpu._scale_latent(to_nhwc(torch.cat(
+        [interpolate_nearest_2x(h0_c), h1_c], dim=1)), invert=False)
+    lat_err = max((h0.cpu() - h0_c).abs().max().item(),
+                  (h1.cpu() - h1_c).abs().max().item(),
+                  (z_g.cpu() - z_c).abs().max().item())
+    if not lat_err <= TOY_ENCODE_ATOL:
+        raise AssertionError(f"toy encode card vs CPU {lat_err} > "
+                             f"{TOY_ENCODE_ATOL}")
+    loss_c = loss0 + loss1
+    loss_err = abs(loss_g.item() - loss_c.item()) / loss_c.item()
+    if not loss_err <= TOY_ENCODE_ATOL:
+        raise AssertionError(f"toy codebook loss card vs CPU: relative "
+                             f"{loss_err} > {TOY_ENCODE_ATOL}")
+    # forward_with_aux's images: its quantized latent, then the coarse and
+    # the fine channel group alone
+    quant = quant_g.cpu()
+    groups = [quant, quant.clone(), quant.clone()]
+    groups[1][..., :4] = 0.0
+    groups[2][..., 4:] = 0.0
+    with torch.no_grad():
+        imgs_c = [fc.decode(q) for q in groups]
+    img_err = max((a - b.cpu()).abs().max().item()
+                  for a, b in zip(imgs_c, [dec_g] + aux_g))
+    if not img_err <= TOY_IMAGE_ATOL:
+        raise AssertionError(f"toy forward_with_aux images card vs CPU "
+                             f"{img_err} > {TOY_IMAGE_ATOL}")
+    # the round trip: the card's diffusion latent decoded on both
+    z = cpu._scale_latent(z_g.cpu(), invert=True)
+    with torch.no_grad():
+        img_g, codes_g = gpu.decode_first_stage_with_codes(z_g)
+        _, codes_c = cpu.decode_first_stage_with_codes(z_g.cpu())
+    trip_decided = check_codes(fc, codes_c, codes_g,
+                               [z[..., :4], z[..., 4:]])
+    trip_c, trip_err = images_from_cpu_codes(fc, fg, codes_c)
+    if not bool(torch.isfinite(img_g).all()):
+        raise AssertionError("toy round trip: non-finite image")
+    rows = sum(c.numel() for c in (c0, c1))
+    log(f"toy encode card vs CPU ({label}): latents max_abs_err "
+        f"{lat_err:.3e} (tol {TOY_ENCODE_ATOL}), codes equal at {decided} "
+        f"decided rows of {rows}; forward_with_aux images max_abs_err "
+        f"{img_err:.3e} (tol {TOY_IMAGE_ATOL}), codebook loss relative "
+        f"error {loss_err:.3e}; round trip codes equal at {trip_decided} "
+        f"decided rows, image max_abs_err {trip_err:.3e}, range "
+        f"[{trip_c.min().item():.3f}, {trip_c.max().item():.3f}]")
 
 
 def sampler_phase():
@@ -932,10 +1111,7 @@ def sampler_phase():
     for both runs, so both see the same noise."""
     cfg = toy_config()
     cfg["params"]["timesteps"] = TOY_TIMESTEPS
-    cpu = instantiate_from_config(cfg, device="cpu", seed=1)
-    randomize_zero_init_(cpu, 2)
-    gpu = instantiate_from_config(cfg, seed=1)
-    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    cpu, gpu = toy_models(cfg)
     tokens = np.random.default_rng(3).integers(0, 30522, (2, CTX_LEN))
     for sampler, eta in TOY_SAMPLERS:
         latents = []
@@ -1002,51 +1178,80 @@ def unet_calls(model, sampler, steps):
     return model.num_stage * per_stage * 2
 
 
-def attention_tokens(model):
-    """(tokens of each SpatialTransformer's self-attention in one UNet call,
-    tokens of each decoder AttnBlock), walked from the modules: the UNet
-    from the latent size through its down- and upsamples, the decoder from
-    the latent size through its upsamples."""
-    unet = model.model.diffusion_model
+def unet_tokens(model):
+    """Tokens of each SpatialTransformer's self-attention in one UNet call,
+    walked from the latent size through the UNet's down- and upsamples."""
     side = model.image_size
-    unet_tokens = []
-    for _, layers in unet._trunk():
+    tokens = []
+    for _, layers in model.model.diffusion_model._trunk():
         for _, mod in layers:
             if isinstance(mod, UNetDownsample):
                 side //= 2
             elif isinstance(mod, UNetUpsample):
                 side *= 2
             elif isinstance(mod, SpatialTransformer):
-                unet_tokens.append(side * side)
-    dec = model.first_stage_model.decoder
-    side = model.image_size
-    dec_tokens = [side * side]           # the middle AttnBlock
+                tokens.append(side * side)
+    return tokens
+
+
+def decoder_tokens(dec, side):
+    """Tokens of each AttnBlock of a VQGAN Decoder fed a side x side
+    latent: the middle one, then each up level's from the coarsest."""
+    tokens = [side * side]
     for i in reversed(range(len(dec.up))):
-        dec_tokens += [side * side] * len(dec.up[i]["attn"])
+        tokens += [side * side] * len(dec.up[i]["attn"])
         if "upsample" in dec.up[i]:
             side *= 2
-    return unet_tokens, dec_tokens
+    return tokens
+
+
+def n_3x3(*modules):
+    return sum(isinstance(m, Conv2d) and m.is_3x3_same
+               for module in modules for m in module.modules())
+
+
+def first_stage_arch(first, image_side):
+    """The MS-VQGAN's kernel sites, counted from its modules for images of
+    image_side^2. Encode: every 3x3 conv and GroupNorm of the encoder and
+    the shared decoders, the tokens of each AttnBlock (the trunk's, walked
+    through its downsamples; each head's over its tap; each shared
+    decoder's over the finer scale's grid); decode: the decoder's, from the
+    finest grid."""
+    enc = first.encoder
+    side, tokens, taps = image_side, [], []
+    for level in enc.down:
+        tokens += [side * side] * len(level["attn"])
+        taps.append(side)
+        if "downsample" in level:
+            side //= 2
+    taps = taps[-enc.multiscale:]             # finer -> coarser
+    tokens += [s * s for s in taps]
+    for dec, s in zip(first.shared_decoder, taps[::-1][1:]):
+        tokens += decoder_tokens(dec, s)
+    return dict(
+        encode_3x3=n_3x3(enc, first.shared_decoder),
+        encode_norms=count(enc, GroupNorm) + count(first.shared_decoder,
+                                                   GroupNorm),
+        encode_attn_tokens=tokens,
+        first_stage_3x3=n_3x3(first.decoder),
+        first_stage_norms=count(first.decoder, GroupNorm),
+        first_stage_attn=count(first.decoder, AttnBlock),
+        decoder_attn_tokens=decoder_tokens(first.decoder, taps[0]),
+        codebooks=count(first, VectorQuantizer))
 
 
 def architecture(model, path, steps):
     """The sites of the model that the kernels serve, counted from its
     modules, and the UNet calls of a run of the path's sampler."""
     unet = model.model.diffusion_model
-    first = model.first_stage_model
-    unet_tokens, dec_tokens = attention_tokens(model)
     return dict(
+        first_stage_arch(model.first_stage_model, 256),
         res_blocks=count(unet, ResBlock),
         transformers=count(unet, SpatialTransformer),
         upsamples=sum(isinstance(m, UNetUpsample) and m.conv is not None
                       for m in unet.modules()),
         bert_layers=count(model.cond_stage_model, XAttention),
-        first_stage_3x3=sum(isinstance(m, Conv2d) and m.is_3x3_same
-                            for m in first.modules()),
-        first_stage_norms=count(first, GroupNorm),
-        first_stage_attn=count(first, AttnBlock),
-        codebooks=count(first, VectorQuantizer),
-        unet_attn_tokens=unet_tokens, decoder_attn_tokens=dec_tokens,
-        ctx_len=path["ctx_len"],
+        unet_attn_tokens=unet_tokens(model), ctx_len=path["ctx_len"],
         unet_calls=unet_calls(model, path["sampler"], steps),
         table_stages=model.num_stage - 1)
 
@@ -1060,6 +1265,36 @@ def attention_route(nq, nk):
     if dispatch.use_smalls(nq, nk):
         return "smalls_attention"
     return None
+
+
+def route_attention(want, sites):
+    """Add to ``want`` the kernel launches of attention ``sites`` (nq, nk,
+    times), each routed by ``attention_route``."""
+    for nq, nk, times in sites:
+        kernel = attention_route(nq, nk)
+        if kernel is not None:
+            want[kernel] += times
+
+
+def expected_first_stage_launches(arch, all_kernel, encodes=0, decodes=0,
+                                  requantizes=0):
+    """Each kernel's launches in ``encodes`` encodes (encoder, fusion heads
+    and a VQ argmin per codebook), ``decodes`` decoder runs and
+    ``requantizes`` per-scale re-quantizations of a diffusion latent:
+    attention routed by its tokens; in the all-kernel configuration every
+    3x3 conv and GroupNorm of those parts (the 1x1, stride-2 and transposed
+    convs stay plain)."""
+    a = arch
+    want = {name: 0 for name in KERNELS}
+    route_attention(want, [(t, t, encodes) for t in a["encode_attn_tokens"]]
+                    + [(t, t, decodes) for t in a["decoder_attn_tokens"]])
+    want["vq_argmin"] = a["codebooks"] * (encodes + requantizes)
+    if all_kernel:
+        want["conv3x3"] = (a["encode_3x3"] * encodes
+                           + a["first_stage_3x3"] * decodes)
+        want["group_norm"] = (a["encode_norms"] * encodes
+                              + a["first_stage_norms"] * decodes)
+    return want
 
 
 def expected_launches(arch, all_kernel):
@@ -1088,10 +1323,7 @@ def expected_launches(arch, all_kernel):
     sites += [(tok, ctx, calls) for tok in a["unet_attn_tokens"]]
     sites += [(ctx, ctx, 2 * a["bert_layers"])]
     sites += [(tok, tok, chunks) for tok in a["decoder_attn_tokens"]]
-    for nq, nk, times in sites:
-        kernel = attention_route(nq, nk)
-        if kernel is not None:
-            want[kernel] += times
+    route_attention(want, sites)
     if all_kernel:
         want.update(
             conv3x3_norm_silu=2 * a["res_blocks"] * calls,
@@ -1157,6 +1389,150 @@ def main_path_phase(card, model, task, label):
     return launches
 
 
+def peak_above(run):
+    """(run's result, its peak device memory above what was allocated
+    before it, GiB)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+
+
+def check_first_stage_arch(first, want, label):
+    arch = first_stage_arch(first, 256)
+    if {k: arch[k] for k in want} != want:
+        raise AssertionError(f"the {label} first stage has {arch}, not "
+                             f"{want}")
+    return arch
+
+
+def held_launches(name, want):
+    """Raise unless the launches since the last ``zero_launches`` are
+    ``want``; returns them."""
+    got = read_launches()
+    if got != want:
+        raise AssertionError(f"{name} launches {got}, expected {want}")
+    return got
+
+
+def check_images(img, name):
+    if tuple(img.shape) != (BATCH, 256, 256, 3):
+        raise AssertionError(f"{name}: image shape {tuple(img.shape)}")
+    spread = img.float().std().item()
+    if not (bool(torch.isfinite(img).all()) and spread > 1e-4):
+        raise AssertionError(f"{name}: non-finite or constant image "
+                             f"(std {spread})")
+    return spread
+
+
+def first_stage_phase(card, model, task, label):
+    """The path's first stage at full width, batch 4, in the current
+    configuration: ``encode_first_stage`` and then ``decode_first_stage``
+    of seeded images, each with its launches held to the architecture's;
+    the round-trip invariant; times of a second run, peak memory and a
+    profile of one encode."""
+    path = PATHS[task]
+    all_kernel = label == "all-kernel"
+    name = f"{task} first stage, {label}"
+    first = model.first_stage_model
+    arch = check_first_stage_arch(first, path["encode_arch"], task)
+    x = seeded_images(34)
+    zero_launches()
+    (z, t_encode), enc_gib = peak_above(
+        lambda: timed(lambda: model.encode_first_stage(x)))
+    enc = held_launches(f"{name} encode", expected_first_stage_launches(
+        arch, all_kernel, encodes=1))
+    latent = (BATCH, model.image_size, model.image_size, model.channels)
+    if tuple(z.shape) != latent or not bool(torch.isfinite(z).all()):
+        raise AssertionError(f"{name}: latent {tuple(z.shape)}, not a "
+                             f"finite {latent}")
+    zero_launches()
+    (img, t_decode), dec_gib = peak_above(
+        lambda: timed(lambda: model.decode_first_stage(z)))
+    held_launches(f"{name} decode", expected_first_stage_launches(
+        arch, all_kernel, decodes=1, requantizes=1))
+    spread = check_images(img, name)
+
+    # quantizing is per vector and the nearest 2x upsample repeats vectors:
+    # re-quantizing the diffusion latent gives encode's codes, the coarse
+    # ones upsampled, and decode(encode(x)[0])'s image
+    with torch.no_grad():
+        quant, _, (coarse, fine) = first.encode(x)
+        img_rt, codes = first.decode_interface(first.encode_interface(x),
+                                               return_code=True)
+        img_q = first.decode(quant)
+    up = coarse.repeat_interleave(2, 1).repeat_interleave(2, 2)
+    if not (torch.equal(codes[0], up) and torch.equal(codes[1], fine)):
+        raise AssertionError(f"{name}: re-quantized codes differ from "
+                             f"encode's")
+    rt_err = (img_rt - img_q).abs().max().item()
+    if not rt_err <= ROUND_TRIP_ATOL:
+        raise AssertionError(f"{name}: round-trip image differs by {rt_err} "
+                             f"> {ROUND_TRIP_ATOL}")
+    _, t_encode2 = timed(lambda: model.encode_first_stage(x))
+    _, t_decode2 = timed(lambda: model.decode_first_stage(z))
+    log(f"{name} on {card}: batch {BATCH}, fp32, latent {tuple(z.shape)} "
+        f"std {z.std().item():.4f}; encode {t_encode:.4f} s / "
+        f"{t_encode2:.4f} s (first / second run), decode {t_decode:.4f} / "
+        f"{t_decode2:.4f} s; image std {spread:.4f}; peak device memory "
+        f"above the model: encode {enc_gib:.3f} GiB, decode {dec_gib:.3f} "
+        f"GiB; encode launches {enc}; round trip: codes "
+        f"equal to encode's ({codes[0].numel()} + {codes[1].numel()}), "
+        f"image max_abs_err {rt_err:.3e} (tol {ROUND_TRIP_ATOL})")
+    profile_once(lambda: model.encode_first_stage(x), f"{name}, one encode")
+
+
+def forward_with_aux_phase(card, model, label):
+    """``MSFPNVQModel.forward_with_aux`` of the MS-VQGAN config at batch 4
+    in the current configuration: one encode and three decodes (the image
+    and the two aux images), launches held to the architecture's; the
+    outputs checked; the time of a second run, peak memory, a profile."""
+    all_kernel = label == "all-kernel"
+    name = f"MSFPNVQModel.forward_with_aux, {label}"
+    arch = check_first_stage_arch(model, T2I_ENCODE_ARCH, "MS-VQGAN")
+    want_dec = {k: T2I_ARCH[k] for k in ("first_stage_3x3",
+                                         "first_stage_norms",
+                                         "first_stage_attn")}
+    if {k: arch[k] for k in want_dec} != want_dec:
+        raise AssertionError(f"the MS-VQGAN decoder has {arch}")
+    x = seeded_images(35)
+
+    def run():
+        with torch.no_grad():
+            return model.forward_with_aux(x)
+
+    zero_launches()
+    ((img, aux, loss, idx), secs), gib = peak_above(lambda: timed(run))
+    launches = held_launches(name, expected_first_stage_launches(
+        arch, all_kernel, encodes=1, decodes=3))
+    spreads = [check_images(i, name) for i in [img] + aux]
+    shapes = [tuple(i.shape) for i in idx]
+    if shapes != [(BATCH, 16, 16), (BATCH, 32, 32)] or not bool(
+            torch.isfinite(loss)):
+        raise AssertionError(f"{name}: indices {shapes}, loss {loss}")
+    gap = min((img - a).abs().max().item() for a in aux)
+    if not gap > 1e-3:
+        raise AssertionError(f"{name}: an aux image equals the image")
+    _, secs2 = timed(run)
+    log(f"{name} on {card}: batch {BATCH}, fp32: {secs:.4f} s / "
+        f"{secs2:.4f} s (first / second run), peak device memory above "
+        f"the model {gib:.3f} GiB, image std {spreads}, codebook loss "
+        f"{loss.item():.4e}, launches {launches}")
+    profile_once(run, name)
+
+
+def build_msvqgan():
+    t0 = time.perf_counter()
+    model = instantiate_from_config(load_yaml(str(MSVQ))["model"], seed=0)
+    torch.cuda.synchronize()
+    log(f"MS-VQGAN model: {MSVQ.relative_to(REPO)}, "
+        f"{sum(p.numel() for p in model.parameters())} parameters, built "
+        f"in {time.perf_counter() - t0:.2f} s")
+    return model
+
+
 def build_main_model(config):
     t0 = time.perf_counter()
     model = instantiate_from_config(load_yaml(str(config))["model"], seed=0)
@@ -1169,36 +1545,57 @@ def build_main_model(config):
     return model
 
 
-def profile_phase(model, path, name):
-    """Where the main path's time goes: device busy share and the heaviest
-    kernels of a short run under torch.profiler (which slows the host, so
-    the idle share it gives is an upper bound), then one UNet call and the
-    part of it spent casting the fp32 weights to bf16."""
+def union_seconds(events):
+    """Seconds covered by at least one of ``events`` (overlapping kernels
+    counted once)."""
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in events):
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return busy / 1e6
+
+
+def profile_once(run, name, top=5):
+    """Device busy time and idle share of one ``run()`` under
+    torch.profiler, and its heaviest kernels. Busy is the union of the
+    kernels' intervals, so kernels that overlap count once; the profiler
+    slows the host, so the idle share is an upper bound. The wall time
+    ends in a synchronise."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, secs = drive_main_path(model, path, seed=2,
-                                     steps=PROFILE_STEPS)
-    wall = sum(secs.values())
+        _, wall = timed(run)
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        log(f"profile ({name}): torch.profiler recorded no device time; "
+            f"device busy share not measured")
+        return
+    busy = union_seconds(e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA)
+    summed = sum(e.self_device_time_total for e in kernels) / 1e6
+    log(f"profile ({name}): wall {wall:.4f} s under the profiler, device "
+        f"busy {busy:.4f} s (kernel times summed: {summed:.4f} s), idle "
+        f"share {1 - busy / wall:.3f}, "
+        f"{sum(e.count for e in kernels)} kernel launches")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:6d}x {e.key[:90]}")
+
+
+def profile_phase(model, path, name):
+    """Where the main path's time goes: device busy share and the heaviest
+    kernels of a short run under torch.profiler (which slows the host, so
+    the idle share it gives is an upper bound), then one UNet call and the
+    part of it spent casting the fp32 weights to bf16."""
     calls = unet_calls(model, path["sampler"], PROFILE_STEPS)
-    if kernels:
-        busy = sum(e.self_device_time_total for e in kernels) / 1e6
-        log(f"profile ({name}; batch {BATCH}, {path['sampler']} "
-            f"{PROFILE_STEPS}, {calls} UNet calls, decode): wall "
-            f"{wall:.3f} s under the profiler, device busy {busy:.3f} s, "
-            f"idle share {1 - busy / wall:.3f}, "
-            f"{sum(e.count for e in kernels)} kernel launches")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total
-                        )[:10]:
-            log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
-                f"{e.count:6d}x {e.key[:90]}")
-    else:
-        log("profile: torch.profiler recorded no device time; device busy "
-            "share not measured")
+    profile_once(lambda: drive_main_path(model, path, seed=2,
+                                         steps=PROFILE_STEPS),
+                 f"{name}; batch {BATCH}, {path['sampler']} {PROFILE_STEPS}"
+                 f", {calls} UNet calls, decode", top=10)
 
     unet = model.model.diffusion_model
     side, first = model.image_size, model.embed_dim_list[0]
@@ -1238,6 +1635,9 @@ def main():
     if not all(toy[name] > 0 for name in KERNELS):
         raise AssertionError(f"toy all-kernel run launched {toy}")
     sampler_phase()
+    toy_encode_phase("default")
+    with all_kernels():
+        toy_encode_phase("all-kernel")
     mark("toy phases")
 
     model = build_main_model(T2I)
@@ -1246,15 +1646,32 @@ def main():
     with all_kernels():
         opt_in = main_path_phase(card, model, "t2i", "all-kernel")
     mark("t2i paths")
+    other = encode_sites_phase(model, "t2i encode")
+    mark("t2i encode sites")
+    first_stage_phase(card, model, "t2i", "default")
+    with all_kernels():
+        first_stage_phase(card, model, "t2i", "all-kernel")
+    del model
+    torch.cuda.empty_cache()
+    model = build_msvqgan()
+    forward_with_aux_phase(card, model, "default")
+    with all_kernels():
+        forward_with_aux_phase(card, model, "all-kernel")
+    mark("t2i first stage and forward_with_aux")
     del model
     torch.cuda.empty_cache()
     model = build_main_model(L2I)
-    other = layout2i_sites_phase(model)
+    other += layout2i_sites_phase(model)
+    other += encode_sites_phase(model, "layout2i encode")
     mark("layout2i sites")
     main_path_phase(card, model, "layout2i", "default")
     with all_kernels():
         main_path_phase(card, model, "layout2i", "all-kernel")
     mark("layout2i paths")
+    first_stage_phase(card, model, "layout2i", "default")
+    with all_kernels():
+        first_stage_phase(card, model, "layout2i", "all-kernel")
+    mark("layout2i first stage")
     for row in rows:
         path = default if row["name"] in ("flash_attention", "vq_argmin") \
             else opt_in

@@ -2,8 +2,9 @@
 
 YAML configs written against the original torch code name targets such as
 ``frido.models.diffusion.frido.FridoDiffusion``; the alias table maps the
-ones this slice of the port builds onto port classes, so
-``configs/frido/t2i/frido_f16f8_coco.yaml`` reads unmodified.
+ones the port builds onto port classes, so the diffusion configs under
+``configs/frido/`` and ``configs/msvqgan/msvqgan_f16f8_coco.yaml`` read
+unmodified.
 """
 
 from __future__ import annotations
@@ -18,8 +19,18 @@ _TARGET_ALIASES: Dict[str, str] = {
         "frido_tpu_torch.models.frido.FridoDiffusion",
     "frido.modules.diffusionmodules.pyunet.PyUNetModel":
         "frido_tpu_torch.nn.pyunet.PyUNetModel",
+    "taming.models.msvqgan.MSFPNVQModel":
+        "frido_tpu_torch.models.msvqgan.MSFPNVQModel",
     "taming.models.msvqgan.VQModelInterface":
         "frido_tpu_torch.models.msvqgan.VQModelInterface",
+    "frido.models.autoencoder.VQModel":
+        "frido_tpu_torch.models.autoencoder.VQModel",
+    "frido.models.autoencoder.VQModelInterface":
+        "frido_tpu_torch.models.autoencoder.VQModelInterface",
+    "frido.models.autoencoder.AutoencoderKL":
+        "frido_tpu_torch.models.autoencoder.AutoencoderKL",
+    "frido.models.autoencoder.IdentityFirstStage":
+        "frido_tpu_torch.models.autoencoder.IdentityFirstStage",
     "frido.modules.encoders.modules.BERTEmbedder":
         "frido_tpu_torch.nn.encoders.BERTEmbedder",
     "taming.modules.losses.DummyLoss":

@@ -1,56 +1,58 @@
-"""JAX params tree -> the port's ``state_dict``.
+"""JAX variables tree -> the port's ``state_dict``.
 
 The JAX package names its flax modules after the original torch key tree
 with ``__`` in place of ``.`` (``frido_tpu/io/torch_import.py:45-55``), and
 the port's modules carry that torch tree, so the mapping is mechanical:
 
-==============  =====================  ========================
-flax leaf       port tensor            conversion
-==============  =====================  ========================
-kernel (4-d)    Conv2d  [O, I, kH, kW]  HWIO -> OIHW
-kernel (3-d)    Conv1d  [O, I, k]       kIO  -> OIk
-kernel (2-d)    Dense   [O, I]          [I, O] -> [O, I]
-scale           norm ``weight``         as-is
-embedding       Embed ``weight``        as-is
-bias            ``bias``                as-is
-==============  =====================  ========================
+==============  ============================  ==========================
+flax leaf       port tensor                   conversion
+==============  ============================  ==========================
+kernel (4-d)    Conv2d  [O, I, kH, kW]        HWIO -> OIHW
+kernel_t        ConvTranspose2d [I, O, k, k]  flip H, W; HWIO -> IOHW
+kernel (3-d)    Conv1d  [O, I, k]             kIO  -> OIk
+kernel (2-d)    Dense   [O, I]                [I, O] -> [O, I]
+scale           norm ``weight``               as-is
+embedding       Embed ``weight``              as-is
+bias            ``bias``                      as-is
+==============  ============================  ==========================
 
-Leaves under the subtrees this slice does not build (the MS-VQGAN encoder
-and cross-scale fusion heads) are returned by name as skipped, and
-:func:`load_jax_params` warns with their count; no other leaf is dropped.
+``kernel_t`` is the JAX ``ConvTranspose2d``'s input-dilated conv kernel,
+``kernel_t[h, w, ci, co] = W_torch[ci, co, k-1-h, k-1-w]``: a plain
+transpose would give a kernel of the right shape turned by 180 degrees.
+
+The ``ema`` variable collection (``EMAVectorQuantizer``'s ``embedding``,
+``cluster_size`` and ``embed_avg``) maps onto buffers of the same names,
+as-is. Every leaf is mapped; none is dropped.
 """
 
 from __future__ import annotations
 
-import warnings
-from typing import Any, Dict, List, Mapping, Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
-LEAF_TO_TORCH = {"kernel": "weight", "scale": "weight", "bias": "bias",
-                 "embedding": "weight"}
-
-UNBUILT_SUBTREES = (
-    "first_stage_model.encoder.",
-    "first_stage_model.shared_decoder.",
-    "first_stage_model.upsample.",
-    "first_stage_model.shared_post_quant_conv.",
-    "first_stage_model.ms_quant_conv.",
-)
+LEAF_TO_TORCH = {"kernel": "weight", "kernel_t": "weight", "scale": "weight",
+                 "bias": "bias", "embedding": "weight"}
+COLLECTIONS = ("params", "ema")
 
 
-def torch_key(path: Tuple[str, ...]) -> str:
-    """('down__0__block__1', 'norm1', 'scale') -> 'down.0.block.1.norm1.weight'."""
+def torch_key(path: Tuple[str, ...], collection: str = "params") -> str:
+    """('down__0__block__1', 'norm1', 'scale') ->
+    'down.0.block.1.norm1.weight'; leaves of the ``ema`` collection keep
+    their names."""
     parts = []
     for comp in path[:-1]:
         parts.extend(comp.split("__"))
-    parts.append(LEAF_TO_TORCH.get(path[-1], path[-1]))
+    leaf = path[-1]
+    parts.append(leaf if collection == "ema" else LEAF_TO_TORCH[leaf])
     return ".".join(parts)
 
 
 def to_torch_layout(value: np.ndarray, leaf: str) -> np.ndarray:
     v = np.asarray(value)
+    if leaf == "kernel_t":
+        return v[::-1, ::-1].transpose(2, 3, 0, 1)
     if leaf == "kernel":
         if v.ndim == 4:
             return v.transpose(3, 2, 0, 1)
@@ -69,37 +71,36 @@ def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
             yield prefix + (k,), v
 
 
-def jax_params_to_state_dict(params: Mapping[str, Any]
-                             ) -> Tuple[Dict[str, np.ndarray], List[str]]:
-    """(state dict of numpy arrays in torch layout, skipped torch keys).
+def jax_params_to_state_dict(variables: Mapping[str, Any]
+                             ) -> Dict[str, np.ndarray]:
+    """State dict of numpy arrays in torch layout.
 
-    ``params`` is the nested dict of arrays, with or without the outer
-    ``{"params": ...}`` level. Arrays are returned as views where the
-    conversion is a transpose.
+    ``variables`` is a flax variables dict (``{"params": ...}``, with or
+    without ``"ema"``) or the bare params tree. Arrays are returned as views
+    where the conversion is a transpose or a flip.
     """
-    if set(params) == {"params"}:
-        params = params["params"]
-    state, skipped = {}, []
-    for path, value in _leaves(params):
-        key = torch_key(path)
-        if key.startswith(UNBUILT_SUBTREES):
-            skipped.append(key)
-            continue
-        if path[-1] not in LEAF_TO_TORCH:
-            raise KeyError(f"no port mapping for flax leaf {'/'.join(path)}")
-        state[key] = to_torch_layout(value, path[-1])
-    return state, skipped
+    if variables and set(variables) <= set(COLLECTIONS):
+        trees = [(c, variables[c]) for c in COLLECTIONS if c in variables]
+    else:
+        trees = [("params", variables)]
+    state = {}
+    for collection, tree in trees:
+        for path, value in _leaves(tree):
+            if collection == "params" and path[-1] not in LEAF_TO_TORCH:
+                raise KeyError(f"no port mapping for flax leaf "
+                               f"{'/'.join(path)}")
+            key = torch_key(path, collection)
+            if key in state:
+                raise KeyError(f"two JAX leaves map onto {key}")
+            state[key] = to_torch_layout(value, path[-1])
+    return state
 
 
-def load_jax_params(module: torch.nn.Module, params: Mapping[str, Any]
-                    ) -> List[str]:
-    """Load a JAX params tree into ``module`` with ``strict=True``; returns
-    the skipped keys (and warns with their count)."""
-    state, skipped = jax_params_to_state_dict(params)
+def load_jax_params(module: torch.nn.Module,
+                    variables: Mapping[str, Any]) -> None:
+    """Load a JAX variables tree into ``module`` with ``strict=True``: every
+    leaf has its tensor, every tensor its leaf."""
+    state = jax_params_to_state_dict(variables)
     tensors = {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
                for k, v in state.items()}
     module.load_state_dict(tensors, strict=True)
-    if skipped:
-        warnings.warn(f"skipped {len(skipped)} JAX leaves of subtrees the "
-                      f"port does not build: {sorted(set(UNBUILT_SUBTREES))}")
-    return skipped

@@ -2,8 +2,8 @@
 side (port of ``frido_tpu/models/frido.py``).
 
 One ``nn.Module`` whose children carry the original Lightning key tree:
-``model.diffusion_model`` (the PyUNet), ``first_stage_model`` (MS-VQGAN
-decode side) and ``cond_stage_model`` (the BERT encoder), so a state dict
+``model.diffusion_model`` (the PyUNet), ``first_stage_model`` (the
+MS-VQGAN) and ``cond_stage_model`` (the BERT encoder), so a state dict
 made by ``frido_tpu_torch/io/jax_weights.py`` loads with ``strict=True``.
 
 Public methods keep the JAX package's layout: latents NHWC
@@ -13,13 +13,17 @@ images NHWC [B, 256, 256, 3]. The model lives on
 tests, ``"meta"`` for shapes only).
 
 ``sample`` runs the JAX package's four samplers (PLMS, DDIM,
-DPM-Solver++(2M), the full-T vanilla chain). Not ported yet: training
-(losses, ``q_sample``), encode, tiled (``split_input_params``) inference,
-checkpoint loading and the image-log galleries.
+DPM-Solver++(2M), the full-T vanilla chain); ``encode_first_stage`` and
+``decode_first_stage`` map images to scaled latents and back. With
+``split_input_params`` (``ks``, ``stride``, optional ``vqf``) the UNet and
+the decoder run tile by tile on latents wider than ``ks``
+(``ops/tiling.py``). Not ported yet: training (losses, ``q_sample``,
+``init_scale_by_std``), checkpoint loading and the image-log galleries.
 """
 
 from __future__ import annotations
 
+import functools
 import warnings
 from typing import Any, Dict, List, Optional
 
@@ -30,7 +34,9 @@ import torch.nn as nn
 from frido_tpu_torch.config import instantiate_from_config
 from frido_tpu_torch.device import DeviceLike, resolve_device
 from frido_tpu_torch.diffusion import samplers
-from frido_tpu_torch.nn.layers import init_module_
+from frido_tpu_torch.nn.layers import seed_init_
+from frido_tpu_torch.ops.image import to_nchw, to_nhwc
+from frido_tpu_torch.ops.tiling import tiled_apply
 from frido_tpu_torch.schedules import DiffusionSchedule
 
 _FRIDO_DEFAULTS: Dict[str, Any] = dict(
@@ -86,8 +92,6 @@ class FridoDiffusion(nn.Module):
         for k, v in _FRIDO_DEFAULTS.items():
             setattr(self, k, kwargs.pop(k, v))
         self.extra = kwargs
-        if self.extra.get("split_input_params"):
-            raise NotImplementedError("tiled inference is not ported yet")
         if cond_stage_config == "__is_unconditional__":
             self.conditioning_key = None
         elif self.conditioning_key is None:
@@ -103,12 +107,13 @@ class FridoDiffusion(nn.Module):
             v_posterior=self.v_posterior,
             parameterization=self.parameterization)
 
+        self.first_stage_ddconfig = first_stage_config["params"]["ddconfig"]
         self.embed_dim_list: List[int] = list(
             first_stage_config["params"]["embed_dim"])
         self.num_stage = len(self.embed_dim_list)
         self.model = DiffusionWrapper(unet_config, device=self.device)
         self.first_stage_model = instantiate_from_config(
-            first_stage_config, device=self.device)
+            first_stage_config, device=self.device, seed=None)
         if isinstance(cond_stage_config, dict):
             self.cond_stage_model = instantiate_from_config(
                 cond_stage_config, device=self.device)
@@ -124,9 +129,7 @@ class FridoDiffusion(nn.Module):
         else:
             self.scale_factors = np.asarray(self.scale_factor, np.float32)
 
-        if self.device.type != "meta":
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            init_module_(self, gen)
+        seed_init_(self, seed, self.device)
         self.eval()
 
     # ------------------------------------------------------------------
@@ -154,29 +157,54 @@ class FridoDiffusion(nn.Module):
             tokens, torch.Tensor) else tokens).to(self.device, torch.long)
         return self.cond_stage_model(tokens)
 
+    def _tiling(self, side: int) -> Optional[Dict[str, Any]]:
+        """``split_input_params`` when a latent of this side is tiled."""
+        sip = self.extra.get("split_input_params")
+        return sip if sip and side > sip["ks"][0] else None
+
     def apply_model(self, x: torch.Tensor, t: torch.Tensor,
                     context: Optional[torch.Tensor], stage: int,
                     spade_pre=None) -> torch.Tensor:
-        """eps-hat for NHWC ``x`` at timesteps ``t``; NHWC out."""
+        """eps-hat for NHWC ``x`` at timesteps ``t``; NHWC out. Under
+        tiling each tile recomputes its SPADE tables (``spade_pre`` holds
+        full-grid tables and is not used)."""
         if self.conditioning_key is None:
             context = None
-        out = self.model(x.permute(0, 3, 1, 2).contiguous(), t, context,
-                         stage, spade_pre)
-        return out.permute(0, 2, 3, 1)
+        sip = self._tiling(x.shape[1])
+        if sip:
+            return tiled_apply(
+                lambda tile: self.apply_model(tile, t, context, stage), x,
+                ks=tuple(sip["ks"]), stride=tuple(sip["stride"]))
+        out = self.model(to_nchw(x), t, context, stage, spade_pre)
+        return to_nhwc(out)
 
     def spade_tables(self, x_cond: torch.Tensor, stage: int):
         """Stage-invariant SPADE tables from the frozen NHWC channels."""
-        return self.model.diffusion_model.spade_tables(
-            x_cond.permute(0, 3, 1, 2).contiguous(), stage)
+        return self.model.diffusion_model.spade_tables(to_nchw(x_cond), stage)
+
+    @torch.no_grad()
+    def encode_first_stage(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC image -> the scaled NHWC diffusion latent [coarse | fine]."""
+        return self._scale_latent(
+            self.first_stage_model.encode_interface(x), invert=False)
 
     @torch.no_grad()
     def decode_first_stage(self, z: torch.Tensor,
                            chunk: Optional[int] = None) -> torch.Tensor:
         """NHWC latent -> NHWC image, ``chunk`` samples at a time when
         ``chunk`` divides the batch (``models/frido.py:389-420``); otherwise
-        the whole batch at once, with a warning."""
+        the whole batch at once, with a warning. A latent wider than the
+        tiling's ``ks`` decodes tile by tile, each tile to ``ks * vqf``
+        pixels; chunking wraps the tiled decode."""
         z = self._scale_latent(z, invert=True)
         decode = self.first_stage_model.decode_interface
+        sip = self._tiling(z.shape[1])
+        if sip:
+            dd = self.first_stage_ddconfig
+            vqf = int(sip.get("vqf", 2 ** (len(dd["ch_mult"]) - 1)))
+            decode = functools.partial(
+                tiled_apply, decode, ks=tuple(sip["ks"]),
+                stride=tuple(sip["stride"]), out_ch=dd["out_ch"], scale=vqf)
         b = z.shape[0]
         if chunk and b > chunk:
             if b % chunk == 0:
@@ -186,6 +214,19 @@ class FridoDiffusion(nn.Module):
                           f"decoding the whole batch at once (peak device "
                           f"memory grows with the batch)")
         return decode(z)
+
+    @torch.no_grad()
+    def decode_first_stage_with_codes(self, z: torch.Tensor):
+        """(NHWC images, per-scale int32 code grids) of a scaled latent, for
+        codebook analysis."""
+        return self.first_stage_model.decode_interface(
+            self._scale_latent(z, invert=True), return_code=True)
+
+    @torch.no_grad()
+    def quantize_latent(self, z: torch.Tensor) -> torch.Tensor:
+        """Each stage's channel block of an unscaled NHWC latent through its
+        codebook."""
+        return self.first_stage_model.quantize_latent(z)
 
     @torch.no_grad()
     def sample(self, batch_size: int, context=None, uncond_context=None,
@@ -205,7 +246,7 @@ class FridoDiffusion(nn.Module):
         ``generator`` (``diffusion/samplers.py``). ``compute_dtype``
         (``torch.bfloat16`` on the card) runs the UNet in that dtype while
         the update math and schedule stay fp32; the SPADE tables are
-        computed once per stage.
+        computed once per stage (per UNet call under tiling).
         """
         shape = (batch_size, self.image_size, self.image_size, self.channels)
         cfg = samplers.SamplerConfig(
@@ -224,8 +265,9 @@ class FridoDiffusion(nn.Module):
             x = x if cd is None else x.to(cd)
             return self.apply_model(x, t, ctx, stage, spade_pre).float()
 
+        # the SPADE tables are full-grid: none under tiling
         stage_invariants = None
-        if self.num_stage > 1:
+        if self.num_stage > 1 and not self.extra.get("split_input_params"):
             def stage_invariants(stage, x_cond):
                 if stage == 0:
                     return None

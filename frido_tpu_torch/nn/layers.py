@@ -1,8 +1,9 @@
 """Primitive layers (port of ``frido_tpu/nn/layers.py``), channel-first.
 
 Parameters are stored in torch layouts and fp32: ``Conv2d.weight``
-[O, I, kH, kW], ``Conv1d.weight`` [O, I, k], ``Dense.weight`` [O, I],
-``Embed.weight`` [N, D], norms ``weight``/``bias``.
+[O, I, kH, kW], ``ConvTranspose2d.weight`` [I, O, kH, kW],
+``Conv1d.weight`` [O, I, k], ``Dense.weight`` [O, I], ``Embed.weight``
+[N, D], norms ``weight``/``bias``.
 
 Dtype policy, the JAX package's (``nn/layers.py:221, 404-409, 447-453``):
 each conv and matmul casts its weights to the activation dtype, and norms
@@ -44,13 +45,17 @@ def _uniform_(t: torch.Tensor, bound: float, gen: torch.Generator) -> None:
 
 
 class _Linearish(nn.Module):
-    """Shared parameter handling for Conv2d / Conv1d / Dense."""
+    """Shared parameter handling for Conv2d, ConvTranspose2d, Conv1d and
+    Dense."""
 
-    def _make(self, shape, fan_in: int, bias: bool, zero_init: bool, device):
+    def _make(self, shape, fan_in: int, bias: bool, zero_init: bool, device,
+              features: Optional[int] = None):
+        """``features``: the bias length, by default ``shape[0]``."""
         self.fan_in = fan_in
         self.zero_init = zero_init
         self.weight = nn.Parameter(torch.empty(shape, device=device))
-        self.bias = (nn.Parameter(torch.empty(shape[0], device=device))
+        n = shape[0] if features is None else features
+        self.bias = (nn.Parameter(torch.empty(n, device=device))
                      if bias else None)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -99,6 +104,29 @@ class Conv2d(_Linearish):
         if fused_norm is not None:
             return conv3x3_norm_silu(x, w, b, **fused_norm)
         return conv3x3(x, w, b)
+
+
+class ConvTranspose2d(_Linearish):
+    """torch-style ConvTranspose2d (the JAX package's ``ConvTranspose2d``,
+    an input-dilated conv over ``kernel_t``); weight [Cin, Cout, k, k].
+
+    The JAX package computes it in XLA, outside any Pallas kernel, so it
+    stays on ``F.conv_transpose2d`` in every configuration. It initialises
+    as the flax layer does: U(+-1/sqrt(k*k*Cin)), bias 0."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 4,
+                 stride: int = 2, padding: int = 1, bias: bool = True,
+                 device=None):
+        super().__init__()
+        k = kernel_size
+        self._make((cin, cout, k, k), cin * k * k, bias, False, device,
+                   features=cout)
+        self.stride = stride
+        self.padding = padding
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = self._wb(x.dtype)
+        return F.conv_transpose2d(x, w, b, self.stride, self.padding)
 
 
 class Conv1d(_Linearish):
@@ -199,9 +227,20 @@ class LayerNorm(_Affine):
         return (y * self.weight + self.bias).to(x.dtype)
 
 
+def seed_init_(root: nn.Module, seed: Optional[int],
+               device: torch.device) -> nn.Module:
+    """:func:`init_module_` from a generator on ``device`` seeded with
+    ``seed``; nothing for ``seed=None`` or on the ``meta`` device."""
+    if seed is not None and device.type != "meta":
+        init_module_(root, torch.Generator(device=device).manual_seed(seed))
+    return root
+
+
 def init_module_(root: nn.Module, gen: torch.Generator) -> nn.Module:
-    """Initialise every layer under ``root`` (in module order) from ``gen``."""
+    """Initialise every module under ``root`` that has a
+    ``reset_parameters(gen)`` (the layers here, the EMA codebook), in
+    module order, from ``gen``."""
     for mod in root.modules():
-        if isinstance(mod, (_Linearish, Embed, _Affine)):
+        if hasattr(mod, "reset_parameters"):
             mod.reset_parameters(gen)
     return root

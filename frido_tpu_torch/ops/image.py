@@ -13,6 +13,16 @@ import torch
 import torch.nn.functional as F
 
 
+def to_nchw(x: torch.Tensor) -> torch.Tensor:
+    """NHWC -> contiguous NCHW (the port's public tensors are NHWC)."""
+    return x.permute(0, 3, 1, 2).contiguous()
+
+
+def to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """NCHW -> an NHWC view."""
+    return x.permute(0, 2, 3, 1)
+
+
 def interpolate_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x upsample."""
     return x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)

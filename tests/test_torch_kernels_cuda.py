@@ -64,6 +64,10 @@ def _randn(shape, seed, device, dtype=torch.float32):
 
 @pytest.mark.parametrize("bh,nq,nk,d", [
     (2, 1024, 1024, 512),   # decoder AttnBlock site
+    (4, 1024, 1024, 256),   # t2i encoder: trunk and head-0 mid at 32^2
+    (4, 1024, 1024, 128),   # t2i shared decoder's mid at 32^2
+    (4, 4096, 4096, 256),   # layout2i encoder at 64^2
+    (4, 4096, 4096, 128),   # layout2i shared decoder's mid at 64^2
     (3, 100, 77, 64),       # ragged q and kv
     (2, 37, 300, 512),      # d=512, short q, kv tail
     (1, 1, 1, 4),
@@ -180,6 +184,7 @@ def _margin_ok(z, e, got, want):
 
 @pytest.mark.parametrize("n,k,d", [
     (32768, 8192, 4),   # decode lookup
+    (1024, 8192, 4),    # t2i encode, coarse 16^2 scale
     (1000, 1000, 4),    # ragged K
     (513, 300, 4),
     (77, 5000, 3),
@@ -256,6 +261,7 @@ def test_group_norm_kernel_constant_group_gives_bias(cuda):
     (4, 16, 16, 960),     # the 4x4 site: d = 960
     (4, 16, 77, 960),
     (32, 77, 77, 64),     # BERT: 8 heads x batch 4
+    (4, 256, 256, 512),   # t2i encoder's head-1 mid at 16^2
     (3, 100, 512, 50),    # ragged q, the most keys, d % 4 != 0
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -298,6 +304,10 @@ def _conv_inputs(shape, cout, cuda, dtype, seed=30):
     ((4, 384, 32, 32), 384),    # upsample conv
     ((4, 1920, 4, 4), 960),     # H = W = 4, K = 17280
     ((2, 128, 256, 256), 128),  # decoder 256^2
+    ((4, 3, 256, 256), 128),    # encoder conv_in: Cin = 3 at 256^2
+    ((4, 256, 32, 32), 4),      # t2i encoder head 0 conv_out
+    ((4, 512, 16, 16), 4),      # t2i encoder head 1 conv_out
+    ((4, 8, 32, 32), 128),      # t2i shared decoder conv_in
     ((3, 6, 5, 7), 10),         # ragged everything
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -23,7 +23,6 @@ best and second-best distances differ by more than 1e-5.
 """
 
 import pathlib
-import warnings
 
 import jax
 import jax.numpy as jnp
@@ -34,8 +33,7 @@ import torch
 from frido_tpu.config import instantiate_from_config as jax_instantiate
 from frido_tpu.config import load_yaml as jax_load_yaml
 from frido_tpu_torch.config import instantiate_from_config, load_yaml
-from frido_tpu_torch.io.jax_weights import (UNBUILT_SUBTREES,
-                                            jax_params_to_state_dict,
+from frido_tpu_torch.io.jax_weights import (jax_params_to_state_dict,
                                             load_jax_params)
 from frido_tpu_torch.nn import transformer
 from frido_tpu_torch.nn.layers import Conv2d, GroupNorm
@@ -105,9 +103,7 @@ def models():
     np_params = _random_params(shapes, np.random.default_rng(0))
     jparams = jax.tree_util.tree_map(jnp.asarray, np_params)
     port = instantiate_from_config(CONFIG, device="cpu")
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        load_jax_params(port, np_params)
+    load_jax_params(port, np_params)
     return jmodel, jparams, port
 
 
@@ -186,12 +182,12 @@ def test_full_width_config_builds_with_the_jax_tree(name):
                             jax.random.PRNGKey(0))
     views = jax.tree_util.tree_map(
         lambda s: np.broadcast_to(np.float32(0), s.shape), shapes)
-    state, skipped = jax_params_to_state_dict(views)
+    state = jax_params_to_state_dict(views)
     port = instantiate_from_config(load_yaml(path)["model"], device="meta")
     want = {k: tuple(v.shape) for k, v in port.state_dict().items()}
     got = {k: tuple(v.shape) for k, v in state.items()}
-    assert got == want
-    assert skipped and all(k.startswith(UNBUILT_SUBTREES) for k in skipped)
+    assert got == want      # every leaf has its tensor: none is skipped
+    assert "first_stage_model.upsample.0.weight" in got
     seq = load_yaml(path)["model"]["params"]["cond_stage_config"][
         "params"].get("max_seq_len", 77)
     pos = "cond_stage_model.transformer.pos_emb.emb.weight"

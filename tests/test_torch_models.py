@@ -24,7 +24,8 @@ import torch
 
 from frido_tpu.config import instantiate_from_config as jax_instantiate
 from frido_tpu_torch.config import instantiate_from_config
-from frido_tpu_torch.io.jax_weights import load_jax_params
+from frido_tpu_torch.io.jax_weights import (jax_params_to_state_dict,
+                                            load_jax_params)
 from frido_tpu_torch.nn.pyunet import ResBlock
 from frido_tpu_torch.nn.transformer import SpatialTransformer
 
@@ -98,11 +99,14 @@ def models():
     np_params = _random_params(shapes, np.random.default_rng(0))
     jparams = jax.tree_util.tree_map(jnp.asarray, np_params)
     port = instantiate_from_config(CONFIG, device="cpu")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        skipped = load_jax_params(port, np_params)
-    assert skipped and all(k.startswith("first_stage_model.") for k in skipped)
-    assert any("skipped" in str(w.message) for w in caught)
+    # the whole JAX tree, first-stage encoder and fusion heads included,
+    # loads strictly: no leaf is skipped and nothing warns
+    state = jax_params_to_state_dict(np_params)
+    assert set(state) == set(port.state_dict())
+    assert any(k.startswith("first_stage_model.encoder.") for k in state)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        load_jax_params(port, np_params)
     return jmodel, jparams, port
 
 

@@ -194,7 +194,7 @@ def test_decoder_routes_through_the_layers(models, switches):  # noqa: F811
     reach the kernels' entry points through nn/layers.py, and its
     attention (256 tokens in the toy decoder) through dot_attention."""
     _, _, port = models
-    mods = list(port.first_stage_model.modules())
+    mods = list(port.first_stage_model.decoder.modules())   # not the encoder
     n_conv = sum(isinstance(m, Conv2d) and m.is_3x3_same for m in mods)
     n_norm = sum(isinstance(m, GroupNorm) for m in mods)
     n_attn = sum(isinstance(m, AttnBlock) for m in mods)

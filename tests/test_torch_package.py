@@ -8,8 +8,9 @@ coverage of the t2i configuration.
 - On CPU tensors the kernel wrappers take their plain versions and never
   count a launch.
 - Every tensor of the full-width t2i port (built on the ``meta`` device)
-  gets a JAX leaf of the same shape through ``io/jax_weights.py``; the only
-  JAX leaves left over belong to the subtrees this slice does not build.
+  gets a JAX leaf of the same shape through ``io/jax_weights.py``, and no
+  JAX leaf is left over, the first stage's encoder and fusion heads
+  included.
   The JAX shapes come from ``jax.eval_shape``, with nothing allocated.
 """
 
@@ -24,8 +25,7 @@ import torch
 from frido_tpu.config import instantiate_from_config as jax_instantiate
 from frido_tpu.config import load_yaml as jax_load_yaml
 from frido_tpu_torch.config import instantiate_from_config, load_yaml
-from frido_tpu_torch.io.jax_weights import (UNBUILT_SUBTREES,
-                                            jax_params_to_state_dict)
+from frido_tpu_torch.io.jax_weights import jax_params_to_state_dict
 from frido_tpu_torch.nn.transformer import dot_attention
 from frido_tpu_torch.ops.cuda.attention import flash_attention
 from frido_tpu_torch.ops.cuda.vq import vq_argmin
@@ -86,14 +86,16 @@ def test_full_width_weight_bridge_covers_port():
                             jax.random.PRNGKey(0))
     views = jax.tree_util.tree_map(
         lambda s: np.broadcast_to(np.float32(0), s.shape), shapes)
-    state, skipped = jax_params_to_state_dict(views)
+    state = jax_params_to_state_dict(views)
 
     port = instantiate_from_config(load_yaml(str(T2I))["model"],
                                    device="meta")
     want = {k: tuple(v.shape) for k, v in port.state_dict().items()}
     got = {k: tuple(v.shape) for k, v in state.items()}
-    assert got == want
+    assert got == want      # every leaf has its tensor: none is skipped
     assert sum(np.prod(s) for s in want.values()) > 7e8
-    assert skipped and all(k.startswith(UNBUILT_SUBTREES) for k in skipped)
-    assert {p for p in UNBUILT_SUBTREES
-            if any(k.startswith(p) for k in skipped)} == set(UNBUILT_SUBTREES)
+    assert {k.split(".")[1] for k in got
+            if k.startswith("first_stage_model.")} == {
+        "encoder", "decoder", "ms_quantize", "ms_quant_conv",
+        "post_quant_conv", "upsample", "shared_post_quant_conv",
+        "shared_decoder"}

@@ -26,7 +26,6 @@ steps as S = 20, so DPM-Solver++'s second-order final step is tested at
 20).
 """
 
-import warnings
 
 import jax
 import jax.numpy as jnp
@@ -58,9 +57,7 @@ def models():
     np_params = _random_params(shapes, np.random.default_rng(0))
     jparams = jax.tree_util.tree_map(jnp.asarray, np_params)
     port = instantiate_from_config(CONFIG, device="cpu")
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        load_jax_params(port, np_params)
+    load_jax_params(port, np_params)
     return jmodel, jparams, port
 
 
