@@ -20,6 +20,12 @@ heads and both codebooks) and decodes the latent again, and the MS-VQGAN of
 ``configs/msvqgan/msvqgan_f16f8_coco.yaml`` (the t2i first stage's
 architecture) runs its training forward ``forward_with_aux`` at batch 4.
 
+Training: the t2i model trains at its config's batch of 32 (bf16 UNet and
+encode, fp32 weights, AdamW at ``scaled_learning_rate(1e-6, 32, 1)``, the
+EMA of the denoiser), and the MS-VQGAN at its config's batch of 6 (fp32,
+``use_aux_loss``, the config's loss, from its ``disc_start`` so both
+phases and d_weight are live; no LPIPS, as without local weights).
+
 Weights are random, made from a seed; the zero-initialised output convs get
 a seeded random init too, so the UNet does not predict 0. Each path runs
 twice: in the default configuration (flash attention and the VQ argmin on
@@ -41,7 +47,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    timesteps) on the toy model, card against CPU, the noise drawn from a
    CPU generator seeded alike for both; then the toy's encode,
    round trip and ``forward_with_aux``, card against CPU, in both
-   configurations;
+   configurations; then a toy diffusion train step and a toy GAN step
+   before and after ``disc_start``, card against CPU from the same weights
+   (loss, logs, every gradient, the updated weights, the Adam moments, the
+   EMA, d_weight, the BatchNorm statistics), in both configurations;
 4. the t2i path in each configuration, with every kernel's launch count
    set to 0 just before and read just after, and held to the count the
    architecture and the sampler give;
@@ -53,7 +62,16 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    re-quantized diffusion latent gives encode's codes and image), times,
    peak memory and a profile of one encode; then ``forward_with_aux`` of
    the MS-VQGAN config in each configuration, held alike;
-6. the layout2i sites: every distinct kernel call of one all-kernel pass
+6. training: every distinct kernel call of one all-kernel t2i train step and of one GAN
+   step, forward as in 5 and, where it takes a gradient, its gradient
+   against the plain version's autograd; the t2i model's diffusion
+   training (2 warm-up and 5 timed steps) in both configurations and one
+   fp32 step, and the MS-VQGAN's GAN training (2 + 3) in both, each with
+   its launches per step held to the architecture's (the backward
+   recomputes through the plain versions and launches nothing), img/s,
+   step seconds, peak memory above the model and a profiled step; LPIPS
+   with seeded weights at the GAN's batch, card against CPU;
+7. the layout2i sites: every distinct kernel call of one all-kernel pass
    of the layout2i model at batch 4 (conditioning, a UNet call per stage,
    decode) and of its encode, and flash and the VQ argmin at the decode
    chunk of 32, each checked as in 5 unless checked before (in 2 or an
@@ -63,8 +81,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit; before that, one ``{"kernels": [...]}``
 line (the launches: the t2i path's), and before that one
-``{"other_sites": [...]}`` line (each site with the pass that made it and
-the arguments of its check: attention (bh, nq, nk, d, dtype), VQ (n, k,
+``{"other_sites": [...]}`` line (each site with the pass that made it,
+its gradient's relative error where it was checked, and the arguments of
+its check: attention (bh, nq, nk, d, dtype), VQ (n, k,
 d), GroupNorm (shape, dtype, groups, eps, silu), conv (shape, cout,
 dtype), fused conv (shape, cout, dtype, spade, groups, eps)). Without
 CUDA, or outside the repository, it exits non-zero and prints no result.
@@ -98,7 +117,11 @@ sys.path.insert(0, str(REPO))
 import torch.nn.functional as F  # noqa: E402
 
 from frido_tpu_torch.config import instantiate_from_config, load_yaml  # noqa: E402,E501
-from frido_tpu_torch.nn.layers import Conv2d, GroupNorm  # noqa: E402
+from frido_tpu_torch.losses.lpips import LPIPS  # noqa: E402
+from frido_tpu_torch.losses.vqperceptual import (  # noqa: E402
+    VQLPIPSWithDiscriminator)
+from frido_tpu_torch.models.msvqgan import MSFPNVQModel  # noqa: E402
+from frido_tpu_torch.nn.layers import Conv2d, GroupNorm, init_module_  # noqa: E402,E501
 from frido_tpu_torch.nn.pyunet import (  # noqa: E402
     ResBlock, UNetDownsample, UNetUpsample)
 from frido_tpu_torch.nn.quantize import VectorQuantizer  # noqa: E402
@@ -119,6 +142,8 @@ from frido_tpu_torch.ops.cuda.norm import (  # noqa: E402
 from frido_tpu_torch.ops.cuda.vq import (  # noqa: E402
     vq_argmin, vq_argmin_plain, vq_plan)
 from frido_tpu_torch.schedules import DDIMSchedule  # noqa: E402
+from frido_tpu_torch.training import (  # noqa: E402
+    optim, trainer, vqgan_trainer)
 from frido_tpu_torch.tools.attention_ab import graph_ms  # noqa: E402
 
 T2I = REPO / "configs" / "frido" / "t2i" / "frido_f16f8_coco.yaml"
@@ -241,6 +266,57 @@ TOY_LATENT_ATOL = 1e-3     # ten fp32 UNet calls per stage, CPU vs card sums
 TOY_IMAGE_ATOL = 1e-3      # fp32 decoder, cuDNN vs CPU conv sum order
 TOY_ENCODE_ATOL = 1e-4     # fp32 encoder latents, CPU vs card sums
 ROUND_TRIP_ATOL = 1e-5     # one decode of one quantized latent, twice
+
+# Training: the configs' batches (t2i data.params.batch_size 32, the
+# MS-VQGAN's 6) and learning rates, scaled as main.py and
+# scripts/train_msvqgan.py scale them; the GAN starts at its config's
+# disc_start, so both phases and d_weight are live. Steps: (warm-up, timed).
+_T2I_CFG, _MSVQ_CFG = load_yaml(str(T2I)), load_yaml(str(MSVQ))
+TRAIN_BATCH = _T2I_CFG["data"]["params"]["batch_size"]
+TRAIN_LR = optim.scaled_learning_rate(
+    _T2I_CFG["model"]["base_learning_rate"], TRAIN_BATCH, 1)
+GAN_BATCH = _MSVQ_CFG["data"]["params"]["batch_size"]
+GAN_LR = optim.scaled_learning_rate(
+    _MSVQ_CFG["model"]["base_learning_rate"], GAN_BATCH, 1)
+GAN_DISC_START = _MSVQ_CFG["model"]["params"]["lossconfig"]["params"][
+    "disc_start"]
+TRAIN_STEPS, GAN_STEPS = (2, 5), (2, 3)
+TOY_LR = 1e-3
+TOY_GAN_LOSS = dict(disc_start=1, disc_num_layers=2, disc_weight=0.8,
+                    perceptual_weight=0.0)
+# Training tolerances. Toy steps, card against CPU in fp32: the loss and
+# logs 1e-4 (one UNet call per stage agrees to about 1e-5). Gradients per
+# leaf within 1e-2 of the reference's largest magnitude, that magnitude
+# floored at 1e-1 of the largest over all leaves; and every leaf above
+# 1e-4 of that largest also within 5e-2 of its own norm (the 2-norm of the
+# difference), so a floored leaf that is zeroed, flipped or missing a
+# term fails. The diffusion step's reference is its gradient in float64
+# on the CPU: fp32 sums that cancel (SPADE's mlp_shared weight and bias,
+# whose cotangent passes a GroupNorm's zero-mean output) leave those
+# leaves up to 1.2e-2 of their norm from float64, on the CPU for some
+# leaves and on the card for others (an H100 80GB HBM3 at 700 W). Leaves
+# under 1e-4 of the largest are those whose exact gradient is
+# 0 (a ResBlock's time-embedding bias before a GroupNorm of one channel
+# per group): float64 puts them near 1e-8 of it, and fp32 leaves only
+# rounding noise there. The GAN steps hold the card to the CPU's fp32
+# gradient. The weights within 2 lr: after the first Adam step an element
+# moves by lr whatever its gradient's size, so the weights and the EMA
+# carry no signal of the gradient; the Adam moments, held to (1 - b1) and
+# (1 - b2) times the bound on the two gradients' difference, do. The GAN's
+# logs within the image tolerance, d_weight (a ratio of two gradient
+# norms) within 1e-3 relative. A kernel's gradient against its plain
+# version's autograd at a site: the backward recomputes through the plain
+# version in the inputs' dtype, so 1e-5 of the largest gradient in fp32,
+# 2^-7 in bf16 (cuDNN may pick another algorithm). LPIPS distances (13
+# convs deep, values of order 0.1-1): 1e-3.
+TOY_TRAIN_LOSS_ATOL = 1e-4
+TOY_D_WEIGHT_RTOL = 1e-3
+TRAIN_GRAD_RTOL = 1e-2
+TRAIN_GRAD_FLOOR = 1e-1
+TRAIN_GRAD_NORM_RTOL = 5e-2
+TRAIN_GRAD_NORM_FROM = 1e-4
+SITE_GRAD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+LPIPS_ATOL = 1e-3
 
 
 def log(*parts):
@@ -606,6 +682,8 @@ SITE_CHECKS = {
 # every site checked so far, {kernel: {arguments of its site check}}: the
 # "other sites" check each site once
 CHECKED = {name: set() for name in SITE_CHECKS}
+# every site whose gradient was checked (site_grad_check)
+GRAD_CHECKED = {name: set() for name in SITE_CHECKS}
 
 
 def phase_row(name, sites):
@@ -700,19 +778,28 @@ def conv3x3_norm_silu_phase():
     ])
 
 
-def record_sites(run):
+def record_sites(run, grad=False):
     """Every distinct kernel call made while ``run()`` drives a model in the
     current configuration, recorded where the port calls the six wrappers.
-    Returns {kernel: {arguments of its site check}}."""
+    Returns {kernel: {arguments of its site check}}, and under "grad" the
+    calls that took a gradient, by kernel. ``run()`` goes without autograd
+    unless ``grad``."""
     from frido_tpu_torch.nn import layers, transformer
     from frido_tpu_torch.ops import vq as ops_vq
 
     found = {name: set() for name in KERNELS}
+    found["grad"] = {name: set() for name in KERNELS}
+
+    def add(name, site, *tensors):
+        found[name].add(site)
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in tensors):
+            found["grad"][name].add(site)
 
     def attention(name):
         def call(q, k, v, scale):
-            found[name].add((math.prod(q.shape[:-2]), q.shape[-2],
-                             k.shape[-2], q.shape[-1], q.dtype))
+            add(name, (math.prod(q.shape[:-2]), q.shape[-2], k.shape[-2],
+                       q.shape[-1], q.dtype), q, k, v)
             return KERNELS[name](q, k, v, scale)
         return call
 
@@ -721,19 +808,20 @@ def record_sites(run):
         return vq_argmin(z, e)
 
     def norm(x, weight, bias, num_groups=32, eps=1e-6, fuse_silu=False):
-        found["group_norm"].add((tuple(x.shape), x.dtype, num_groups, eps,
-                                 fuse_silu))
+        add("group_norm", (tuple(x.shape), x.dtype, num_groups, eps,
+                           fuse_silu), x, weight, bias)
         return group_norm(x, weight, bias, num_groups, eps, fuse_silu)
 
     def conv(x, weight, bias):
-        found["conv3x3"].add((tuple(x.shape), weight.shape[0], x.dtype))
+        add("conv3x3", (tuple(x.shape), weight.shape[0], x.dtype), x,
+            weight, bias)
         return conv3x3(x, weight, bias)
 
     def fused(x, weight, bias, nscale, nbias, num_groups, eps, gamma=None,
               beta=None):
-        found["conv3x3_norm_silu"].add((tuple(x.shape), weight.shape[0],
-                                        x.dtype, gamma is not None,
-                                        num_groups, eps))
+        add("conv3x3_norm_silu", (tuple(x.shape), weight.shape[0], x.dtype,
+                                  gamma is not None, num_groups, eps),
+            x, weight, bias, nscale, nbias, gamma, beta)
         return conv3x3_norm_silu(x, weight, bias, nscale, nbias, num_groups,
                                  eps, gamma, beta)
 
@@ -746,7 +834,7 @@ def record_sites(run):
     try:
         for mod, attr, fn in patches:
             setattr(mod, attr, fn)
-        with torch.no_grad():
+        with torch.set_grad_enabled(grad):
             run()
     finally:
         for mod, attr, fn in saved:
@@ -783,17 +871,28 @@ def check_sites(found, label):
     plain version with the tolerances above; returns one "other sites"
     entry per site, labelled with the pass that made it."""
     sites = []
+    grad_sites = found.get("grad", {})
     for name in KERNELS:
-        for site in sorted(found[name] - CHECKED[name], key=str):
-            err, ms, plain_ms, bounded, library_ms = SITE_CHECKS[name](*site)
-            CHECKED[name].add(site)
-            sites.append({
-                "name": name, "site": str(site).replace("torch.", ""),
-                "pass": label, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bounded[0],
-                "bound_by": bounded[1], "library_ms": library_ms})
-    log(f"{label} sites: {len(sites)} checked "
-        f"({ {n: len(found[n]) for n in KERNELS} } distinct calls)")
+        todo = grad_sites.get(name, set()) - GRAD_CHECKED[name]
+        for site in sorted((found[name] - CHECKED[name]) | todo, key=str):
+            entry = {"name": name, "site": str(site).replace("torch.", ""),
+                     "pass": label, "grad_rel_err": None}
+            if site not in CHECKED[name]:
+                err, ms, plain_ms, bounded, library_ms = \
+                    SITE_CHECKS[name](*site)
+                CHECKED[name].add(site)
+                entry.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bounded[0], bound_by=bounded[1],
+                             library_ms=library_ms)
+            if site in todo:
+                entry["grad_rel_err"] = site_grad_check(name, site)
+                GRAD_CHECKED[name].add(site)
+            sites.append(entry)
+    n_grad = sum(e["grad_rel_err"] is not None for e in sites)
+    log(f"{label} sites: {len(sites)} checked, {n_grad} of them with their "
+        f"gradient ({ {n: len(found[n]) for n in KERNELS} } distinct calls, "
+        f"{ {n: len(grad_sites.get(n, ())) for n in KERNELS} } with a "
+        f"gradient)")
     return sites
 
 
@@ -1154,9 +1253,10 @@ def drive_main_path(model, path, seed, steps):
     tokens = np.random.default_rng(seed).integers(0, path["token_high"],
                                                   shape)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    (ctx, uctx), t_cond = timed(lambda: (
-        model.get_learned_conditioning(tokens),
-        model.get_learned_conditioning(utokens)))
+    with torch.no_grad():
+        (ctx, uctx), t_cond = timed(lambda: (
+            model.get_learned_conditioning(tokens),
+            model.get_learned_conditioning(utokens)))
     z, t_sample = timed(lambda: model.sample(
         BATCH, context=ctx, uncond_context=uctx, steps=steps,
         eta=path["eta"], guidance_scale=GUIDANCE, sampler=path["sampler"],
@@ -1523,6 +1623,505 @@ def forward_with_aux_phase(card, model, label):
     profile_once(run, name)
 
 
+# ---------------------------------------------------------------------------
+# training
+def record_optimizer_grads(opt, module):
+    """Wrap ``opt.step`` to keep the gradients it gets, by parameter name."""
+    grads = {}
+    names = {id(p): n for n, p in module.named_parameters()}
+    real = opt.step
+
+    def step():
+        for group in opt.param_groups:
+            for p in group["params"]:
+                grads[names[id(p)]] = (torch.zeros_like(p) if p.grad is None
+                                       else p.grad.detach().clone())
+        return real()
+
+    opt.step = step
+    return grads
+
+
+def grad_errors(got, ref):
+    """Per leaf of ``ref``: (largest error / its tolerance, 2-norm of the
+    error / the leaf's 2-norm, or None for a leaf under
+    TRAIN_GRAD_NORM_FROM of the largest), the tolerance as set out with
+    the training tolerances above."""
+    big = max(g.abs().max().item() for g in ref.values())
+    out = {}
+    for k, g in ref.items():
+        d = got[k].cpu().to(g.dtype) - g
+        tol = TRAIN_GRAD_RTOL * max(g.abs().max().item(),
+                                    TRAIN_GRAD_FLOOR * big)
+        rel = (d.norm() / g.norm()).item() if (
+            g.abs().max().item() >= TRAIN_GRAD_NORM_FROM * big) else None
+        out[k] = (d.abs().max().item() / tol, rel, tol)
+    return out
+
+
+def compare_train_state(name, cpu, gpu, lr, exact=None):
+    """Card against CPU after one step. ``cpu``, ``gpu``: (gradients by
+    name, optimizer, module, trainer with an EMA or None); ``exact``: the
+    step's gradients in float64, the reference where given (else the
+    CPU's). Every gradient within its tolerances of the reference
+    (``grad_errors``), the weights within 2 lr, the Adam moments within
+    (1 - b1), (1 - b2) times the bound on the card's and the CPU's
+    gradient difference, the EMA within (1 - d) 2 lr. Returns the largest
+    errors."""
+    (grads_c, opt_c, mod_c, tr_c), (grads_g, opt_g, mod_g, tr_g) = cpu, gpu
+    ref = grads_c if exact is None else exact
+    if set(grads_g) != set(grads_c) or set(ref) != set(grads_c):
+        raise AssertionError(f"{name}: gradients of other parameters")
+    card = grad_errors(grads_g, ref)
+    ratios = sorted((r, k) for k, (r, _, _) in card.items())
+    rels = sorted((r, k) for k, (_, r, _) in card.items() if r is not None)
+    log(f"{name}: gradient error / tolerance, the largest three: "
+        f"{[(round(r, 3), k) for r, k in ratios[-3:]]}; relative norm of "
+        f"the error, the largest three: "
+        f"{[(float(f'{r:.3e}'), k) for r, k in rels[-3:]]}")
+    errs = dict(grad_ratio=ratios[-1][0], grad_norm_rel=rels[-1][0],
+                weight=0.0, mu=0.0, nu=0.0)
+    bad = [(r, k) for r, k in ratios if not r <= 1.0] + [
+        (r, k) for r, k in rels if not r <= TRAIN_GRAD_NORM_RTOL]
+    if bad:
+        raise AssertionError(f"{name}: {len(bad)} gradients card vs CPU "
+                             f"beyond their tolerance: {bad[-5:]}")
+    cpu_err = {k: (0.0, None, 0.0) for k in grads_c}
+    if exact is not None:
+        cpu_err = grad_errors(grads_c, exact)
+        worst = max((r, k) for k, (r, _, _) in cpu_err.items())
+        worst_rel = max((r, k) for k, (_, r, _) in cpu_err.items()
+                        if r is not None)
+        log(f"{name}: the CPU's fp32 gradient against float64, the largest "
+            f"error / tolerance {worst[0]:.3e} ({worst[1]}), relative norm "
+            f"{worst_rel[0]:.3e} ({worst_rel[1]})")
+    params_g = dict(mod_g.named_parameters())
+    b1, b2 = opt_c.defaults["b1"], opt_c.defaults["b2"]
+    for k, p in mod_c.named_parameters():
+        err = (params_g[k].detach().cpu() - p.detach()).abs().max().item()
+        errs["weight"] = max(errs["weight"], err)
+        if not err <= 2 * lr:
+            raise AssertionError(f"{name}: weight {k} card vs CPU {err} > "
+                                 f"2 lr")
+        if k not in grads_c:
+            continue
+        st_c, st_g = opt_c.state[p], opt_g.state[params_g[k]]
+        g_max = grads_c[k].abs().max().item()
+        # the card's and the CPU's gradients each lie within their error
+        # of the reference
+        gap = card[k][2] * (1.0 + cpu_err[k][0])
+        for m, tol in (("mu", (1 - b1) * gap + 1e-9),
+                       ("nu", (1 - b2) * (2 * g_max * gap + gap ** 2)
+                        + 1e-12)):
+            err = (st_g[m].cpu() - st_c[m]).abs().max().item()
+            errs[m] = max(errs[m], err)
+            if not err <= tol:
+                raise AssertionError(f"{name}: Adam {m} of {k} card vs CPU "
+                                     f"{err} > {tol}")
+    if tr_c is not None:
+        n = tr_c.ema.num_updates
+        d = min(0.9999, (1 + n) / (10 + n))
+        errs["ema"] = max((tr_g.ema.shadow[k].cpu() - v).abs().max().item()
+                          for k, v in tr_c.ema.shadow.items())
+        if not errs["ema"] <= (1 - d) * 2 * lr + 1e-7:
+            raise AssertionError(f"{name}: EMA card vs CPU {errs['ema']}")
+    return {k: float(f"{v:.3e}") for k, v in errs.items()}
+
+
+def toy_exact_grads(model, images, tokens, seed):
+    """The toy diffusion step's gradients in float64 on the CPU: a float64
+    copy of ``model`` (before its step) through the trainer's own draws,
+    encode, conditioning and ``training_loss``."""
+    m = copy.deepcopy(model).double()
+    m.train()
+    m.first_stage_model.requires_grad_(False)
+    shape = (images.shape[0], m.image_size, m.image_size, m.channels)
+    t, noise = trainer._draw(torch.Generator().manual_seed(seed),
+                             images.shape[0], m.timesteps, shape, "cpu")
+    z = m.encode_first_stage(images.double())
+    loss, _ = m.training_loss(z, m.get_learned_conditioning(tokens), t,
+                              noise.double())
+    loss.backward()
+    return {k: p.grad for k, p in trainer.trainable_parameters(m)}
+
+
+def toy_train_config():
+    """The toy t2i model with codebooks of 32: a near tie between two codes
+    the CPU and the card break apart cannot then reach a comparison."""
+    cfg = toy_config()
+    cfg["params"]["first_stage_config"]["params"]["n_embed"] = [32, 32]
+    return cfg
+
+
+def toy_training_phase(label):
+    """One diffusion train step and one GAN step before and after
+    ``disc_start`` on the toy models, card against CPU from the same
+    weights in fp32, in the current configuration: the loss and logs,
+    every gradient (the diffusion step's against float64 on the CPU), the
+    updated weights, the Adam moments, the EMA, d_weight and the BatchNorm
+    running statistics."""
+    cpu, gpu = toy_models(toy_train_config())
+    images = seeded((2, 64, 64, 3), 7, device="cpu").tanh()
+    tokens = np.random.default_rng(8).integers(0, 30522, (2, CTX_LEN))
+    exact = toy_exact_grads(cpu, images, tokens, 9)
+    runs = []
+    for model in (cpu, gpu):
+        opt = optim.build_optimizer(
+            [p for _, p in trainer.trainable_parameters(model)], TOY_LR)
+        tr = trainer.DiffusionTrainer(model, opt)
+        grads = record_optimizer_grads(opt, model)
+        gen = torch.Generator().manual_seed(9)     # t, noise drawn on the CPU
+        logs = tr.train_step({"image": images.to(model.device),
+                              "tokens": tokens}, gen)
+        runs.append((tr, logs, grads))
+    (tc, lc, gc), (tg, lg, gg) = runs
+    loss_err = max(abs(lc[k].item() - lg[k].item()) for k in lc)
+    if not loss_err <= TOY_TRAIN_LOSS_ATOL:
+        raise AssertionError(f"toy train step ({label}) logs card vs CPU "
+                             f"{loss_err} > {TOY_TRAIN_LOSS_ATOL}")
+    errs = compare_train_state(f"toy train step ({label})",
+                               (gc, tc.optimizer, cpu, tc),
+                               (gg, tg.optimizer, gpu, tg), TOY_LR, exact)
+    log(f"toy diffusion train step card vs CPU ({label}, fp32): loss "
+        f"{lc['loss'].item():.6f}, logs max_abs_err {loss_err:.3e} (tol "
+        f"{TOY_TRAIN_LOSS_ATOL}); largest errors {errs} (gradients per leaf "
+        f"against float64 within {TRAIN_GRAD_RTOL} of its max, floor "
+        f"{TRAIN_GRAD_FLOOR}, and {TRAIN_GRAD_NORM_RTOL} of its norm; weights "
+        f"2 lr = {2 * TOY_LR}, no signal at step 1)")
+
+    first = toy_train_config()["params"]["first_stage_config"]["params"]
+    x = seeded((2, 64, 64, 3), 10, device="cpu").tanh()
+    for start in (0, 1):
+        runs = []
+        model_c = MSFPNVQModel(**first, device="cpu", seed=11)
+        loss_c = VQLPIPSWithDiscriminator(**TOY_GAN_LOSS, device="cpu",
+                                          seed=12)
+        model_g = MSFPNVQModel(**first, seed=None)
+        loss_g = VQLPIPSWithDiscriminator(**TOY_GAN_LOSS, seed=None)
+        model_g.load_state_dict(model_c.state_dict(), strict=True)
+        loss_g.load_state_dict(loss_c.state_dict(), strict=True)
+        for model, loss in ((model_c, loss_c), (model_g, loss_g)):
+            device = model.decoder.conv_out.weight.device
+            opt_g = optim.build_optimizer(list(model.parameters()), TOY_LR)
+            opt_d = optim.build_optimizer(list(loss.parameters()), TOY_LR)
+            tr = vqgan_trainer.VQGANTrainer(model, loss, opt_g, opt_d,
+                                            use_aux_loss=True,
+                                            start_step=start)
+            gg_ = record_optimizer_grads(opt_g, model)
+            gd_ = record_optimizer_grads(opt_d, loss)
+            logs = tr.train_step(x.to(device))
+            runs.append((tr, logs, gg_, gd_))
+        (tc, lc, ggc, gdc), (tg, lg, ggg, gdg) = runs
+        dw_err = abs(lg["d_weight"].item() / lc["d_weight"].item() - 1)
+        log_err = max(abs(lc[k].item() - lg[k].item()) for k in lc
+                      if k != "d_weight")
+        if not (dw_err <= TOY_D_WEIGHT_RTOL and log_err <= TOY_IMAGE_ATOL):
+            raise AssertionError(f"toy GAN step {start}: d_weight relative "
+                                 f"{dw_err}, logs {log_err}")
+        name = f"toy GAN step from step {start} ({label})"
+        errs = compare_train_state(name, (ggc, tc.opt_g, tc.model, None),
+                                   (ggg, tg.opt_g, tg.model, None), TOY_LR)
+        d_errs = (compare_train_state(name, (gdc, tc.opt_d, tc.loss, None),
+                                      (gdg, tg.opt_d, tg.loss, None),
+                                      TOY_LR) if start else None)
+        stats_g = tg.loss.state_dict()
+        bn_err = max((stats_g[k].cpu() - v).abs().max().item()
+                     for k, v in tc.loss.state_dict().items()
+                     if "running" in k)
+        if not bn_err <= TOY_IMAGE_ATOL:
+            raise AssertionError(f"{name}: BatchNorm statistics card vs CPU "
+                                 f"{bn_err}")
+        log(f"{name} card vs CPU, fp32: discloss {lc['discloss'].item():.5f}"
+            f", d_weight {lc['d_weight'].item():.5f} (relative error "
+            f"{dw_err:.3e}, tol {TOY_D_WEIGHT_RTOL}), logs max_abs_err "
+            f"{log_err:.3e} (tol {TOY_IMAGE_ATOL}), generator {errs}, "
+            f"discriminator {d_errs}, running statistics max_abs_err "
+            f"{bn_err:.3e}")
+
+
+def site_grad_check(name, site):
+    """The kernel under autograd against its plain version's autograd at
+    one site, for one seeded cotangent: the largest gradient error over
+    the inputs, relative to the largest plain gradient. The backward
+    recomputes through the plain version in the inputs' dtype."""
+    if name in ("flash_attention", "smalls_attention"):
+        bh, nq, nk, d, dtype = site
+        inputs = [seeded((bh, n, d), s, dtype)
+                  for n, s in ((nq, 10), (nk, 11), (nk, 12))]
+        scale = d ** -0.5
+        kernel = lambda *a: KERNELS[name](*a, scale)
+        plain = lambda *a: attention_plain(*a, scale)
+    elif name == "group_norm":
+        shape, dtype, groups, eps, silu = site
+        inputs = [seeded(shape, 40, dtype), 1.0 + 0.1 * seeded(
+            (shape[1],), 41), 0.1 * seeded((shape[1],), 42)]
+        kernel = lambda *a: group_norm(*a, groups, eps, silu)
+        plain = lambda *a: group_norm_plain(*a, groups, eps, silu)
+    elif name == "conv3x3":
+        shape, cout, dtype = site
+        inputs = list(conv_operands(shape, cout, dtype, 50))
+        kernel, plain = conv3x3, conv3x3_plain
+    else:
+        shape, cout, dtype, spade, groups, eps = site
+        inputs = [t for t in fused_operands(shape, cout, dtype, spade, 60)
+                  if t is not None]
+        kernel = lambda *a: conv3x3_norm_silu(*a[:5], groups, eps, *a[5:])
+        plain = lambda *a: conv3x3_norm_silu_plain(*a[:5], groups, eps,
+                                                   *a[5:])
+    dtype = inputs[0].dtype
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        out = fn(*leaves)
+        cot = seeded(tuple(out.shape), 13, out.dtype)
+        return torch.autograd.grad(out, leaves, cot)
+
+    err = 0.0
+    for a, r in zip(grads(kernel), grads(plain)):
+        scale = r.float().abs().max().item()
+        err = max(err, (a.float() - r.float()).abs().max().item()
+                  / max(scale, 1e-30))
+    tol = SITE_GRAD_RTOL[dtype]
+    if not err <= tol:
+        raise AssertionError(f"{name} {site}: gradient relative error {err} "
+                             f"> {tol}")
+    return err
+
+
+def train_batch(n, seed, device="cuda"):
+    """Seeded 256^2 images in [-1, 1] and t2i token ids."""
+    return {"image": seeded((n, 256, 256, 3), seed, device=device).tanh(),
+            "tokens": np.random.default_rng(seed).integers(
+                0, 30522, (n, CTX_LEN))}
+
+
+def diffusion_trainer(model, compute_dtype, remat=False):
+    params = [p for _, p in trainer.trainable_parameters(model)]
+    opt = optim.build_optimizer(params, TRAIN_LR)
+    return trainer.DiffusionTrainer(model, opt, use_ema=True, remat=remat,
+                                     compute_dtype=compute_dtype)
+
+
+def gan_trainer(model, loss, start_step):
+    """Adam (b1 0.5, b2 0.9, no decay) for both phases, as
+    scripts/train_msvqgan.py trains the JAX package's."""
+    opt_g, opt_d = (optim.build_optimizer(list(m.parameters()), GAN_LR,
+                                          b1=0.5, b2=0.9, weight_decay=0.0)
+                    for m in (model, loss))
+    return vqgan_trainer.VQGANTrainer(model, loss, opt_g, opt_d,
+                                      use_aux_loss=True,
+                                      start_step=start_step)
+
+
+def diffusion_sites_phase(model):
+    """Every distinct kernel call of one all-kernel bf16 diffusion train
+    step at the config's batch (encode, conditioning, both stages' UNet
+    forwards), each forward checked as in ``check_sites`` unless checked
+    before, and each call that takes a gradient checked by
+    ``site_grad_check`` once."""
+    with all_kernels():
+        tr = diffusion_trainer(model, torch.bfloat16)
+        batch = train_batch(TRAIN_BATCH, 14)
+        found = record_sites(lambda: tr.train_step(
+            batch, torch.Generator().manual_seed(15)), grad=True)
+    del tr, batch
+    torch.cuda.empty_cache()
+    return check_sites(found, "t2i diffusion train step")
+
+
+def gan_sites_phase(model, loss):
+    """The same for one all-kernel GAN step at the config's batch."""
+    with all_kernels():
+        gan = gan_trainer(model, loss, GAN_DISC_START)
+        x = seeded((GAN_BATCH, 256, 256, 3), 16).tanh()
+        found = record_sites(lambda: gan.train_step(x), grad=True)
+    del gan
+    torch.cuda.empty_cache()
+    return check_sites(found, "MS-VQGAN GAN step")
+
+
+def expected_train_launches(arch, all_kernel, remat=False):
+    """Each kernel's launches in one diffusion train step: one encode, one
+    conditioning, one UNet forward per stage (stage 1 computes its SPADE
+    tables in line: the pre_input_cond conv and three 3x3 convs at each
+    SPADE site); the backward recomputes through the plain versions and
+    launches nothing, except that ``remat`` runs the UNet forwards again."""
+    a = arch
+    runs = 2 if remat else 1
+    calls = (a["table_stages"] + 1) * runs
+    want = expected_first_stage_launches(a, all_kernel, encodes=1)
+    route_attention(want, [(t, t, calls) for t in a["unet_attn_tokens"]]
+                    + [(t, a["ctx_len"], calls)
+                       for t in a["unet_attn_tokens"]]
+                    + [(a["ctx_len"], a["ctx_len"], a["bert_layers"])])
+    if all_kernel:
+        want["conv3x3_norm_silu"] += 2 * a["res_blocks"] * calls
+        want["conv3x3"] += ((1 + a["upsamples"] + 1) * calls
+                            + a["table_stages"] * runs * (
+                                1 + 3 * (2 * a["res_blocks"]
+                                         + a["transformers"])))
+        want["group_norm"] += (a["transformers"] + 1) * calls
+    return want
+
+
+def timed_steps(step, n):
+    """Seconds of each of ``n`` calls of ``step``, each ending in a
+    synchronise."""
+    return [timed(step)[1] for _ in range(n)]
+
+
+def diffusion_training_phase(card, model, label, compute_dtype, steps):
+    """Full-width t2i diffusion training at the config's batch in the
+    current configuration: ``steps`` = (warm-up, timed); launches per step
+    held to the architecture's; the loss finite; the first stage bit for
+    bit unchanged; the EMA counter and the EMA apart from the weights;
+    img/s, step seconds, peak memory above the model, a profiled step.
+    Returns the launches of one step."""
+    all_kernel = label == "all-kernel"
+    warm, timed_n = steps
+    dt = "bf16" if compute_dtype is not None else "fp32"
+    name = f"t2i diffusion training, {label}, {dt}"
+    arch = architecture(model, PATHS["t2i"], 1)
+    first = {k: v.clone() for k, v in
+             model.first_stage_model.state_dict().items()}
+    torch.cuda.synchronize()
+    model_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    remat = False
+    tr = diffusion_trainer(model, compute_dtype)
+    gen = torch.Generator().manual_seed(17)
+    batch = train_batch(TRAIN_BATCH, 18)
+    try:
+        zero_launches()
+        logs, first_s = timed(lambda: tr.train_step(batch, gen))
+    except torch.cuda.OutOfMemoryError as e:
+        log(f"{name}: batch {TRAIN_BATCH} does not fit ({str(e)[:200]}); "
+            f"the batch stays {TRAIN_BATCH} and the step runs with remat "
+            f"(torch.utils.checkpoint over the diffusion loss)")
+        del tr
+        torch.cuda.empty_cache()
+        remat = True
+        tr = diffusion_trainer(model, compute_dtype, remat=True)
+        zero_launches()
+        logs, first_s = timed(lambda: tr.train_step(batch, gen))
+    launches = read_launches()
+    want = expected_train_launches(arch, all_kernel, remat)
+    if launches != want:
+        raise AssertionError(f"{name}: launches per step {launches}, "
+                             f"expected {want}")
+    secs = [first_s] + timed_steps(lambda: tr.train_step(batch, gen),
+                                   warm + timed_n - 1)
+    loss = logs["loss"].item()
+    if not math.isfinite(loss):
+        raise AssertionError(f"{name}: loss {loss}")
+    peak_gib = (torch.cuda.max_memory_allocated() - model_bytes) / 2 ** 30
+    state_gib = (torch.cuda.memory_allocated() - model_bytes) / 2 ** 30
+    after = model.first_stage_model.state_dict()
+    if not all(torch.equal(after[k], v) for k, v in first.items()):
+        raise AssertionError(f"{name}: the frozen first stage changed")
+    if tr.ema.num_updates != warm + timed_n:
+        raise AssertionError(f"{name}: EMA counter {tr.ema.num_updates}")
+    params = dict(tr.ema.module.named_parameters())
+    if all(torch.equal(s, params[k]) for k, s in tr.ema.shadow.items()):
+        raise AssertionError(f"{name}: the EMA equals the weights")
+    step_s = secs[warm:] or secs
+    log(f"{name} on {card}: batch {TRAIN_BATCH}, AdamW lr {TRAIN_LR:.2e} "
+        f"(scaled_learning_rate(1e-6, {TRAIN_BATCH}, 1)), EMA on"
+        f"{', remat' if remat else ''}: loss {loss:.5f} (first step), "
+        f"{logs['loss_simple_stage0'].item():.5f} / "
+        f"{logs['loss_simple_stage1'].item():.5f} per stage; step seconds "
+        f"{[round(x, 4) for x in secs]} ({warm} warm-up), mean "
+        f"{sum(step_s) / len(step_s):.4f} s, "
+        f"{TRAIN_BATCH * len(step_s) / sum(step_s):.3f} img/s; peak device "
+        f"memory above the model {peak_gib:.2f} GiB (optimizer state and "
+        f"EMA {state_gib:.2f} GiB of it); launches per step {launches}; "
+        f"EMA counter {tr.ema.num_updates}; first stage unchanged")
+    if timed_n:
+        profile_once(lambda: tr.train_step(batch, gen), f"{name}, one step")
+    del tr
+    torch.cuda.empty_cache()
+    return launches
+
+
+def gan_training_phase(card, model, loss, label, steps):
+    """Full-width MS-VQGAN GAN training at the config's batch, fp32,
+    ``use_aux_loss``, from step ``disc_start`` so both phases and d_weight
+    are live, in the current configuration: launches per step held to the
+    architecture's (one encode and three decodes of forward_with_aux; the
+    discriminator's 4x4 convs and BatchNorms are plain); finite logs;
+    img/s, step seconds, peak memory above the model, a profiled step."""
+    all_kernel = label == "all-kernel"
+    warm, timed_n = steps
+    name = f"MS-VQGAN GAN training, {label}, fp32"
+    arch = first_stage_arch(model, 256)
+    torch.cuda.synchronize()
+    model_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr = gan_trainer(model, loss, GAN_DISC_START)
+    x = seeded((GAN_BATCH, 256, 256, 3), 19).tanh()
+    zero_launches()
+    logs, first_s = timed(lambda: tr.train_step(x))
+    launches = held_launches(name, expected_first_stage_launches(
+        arch, all_kernel, encodes=1, decodes=3))
+    secs = [first_s] + timed_steps(lambda: tr.train_step(x),
+                                   warm + timed_n - 1)
+    bad = {k: v.item() for k, v in logs.items()
+           if not math.isfinite(v.item())}
+    if bad or not logs["d_weight"].item() > 0 \
+            or not logs["discloss"].item() > 0:
+        raise AssertionError(f"{name}: logs {logs}")
+    peak_gib = (torch.cuda.max_memory_allocated() - model_bytes) / 2 ** 30
+    step_s = secs[warm:]
+    log(f"{name} on {card}: batch {GAN_BATCH}, use_aux_loss, from step "
+        f"{GAN_DISC_START} (disc_start), perceptual_weight "
+        f"{loss.perceptual_weight if loss.use_lpips else 0}: aeloss "
+        f"{logs['aeloss'].item():.5f}, discloss {logs['discloss'].item():.5f},"
+        f" d_weight {logs['d_weight'].item():.5f} (first step); step seconds "
+        f"{[round(s, 4) for s in secs]} ({warm} warm-up), timed mean "
+        f"{sum(step_s) / len(step_s):.4f} s, "
+        f"{GAN_BATCH * len(step_s) / sum(step_s):.3f} img/s; peak device "
+        f"memory above the model {peak_gib:.2f} GiB; launches per step "
+        f"{launches}")
+    profile_once(lambda: tr.train_step(x), f"{name}, one step")
+    del tr
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lpips_phase(card):
+    """The LPIPS network with seeded weights at the GAN step's batch and
+    256^2: all-kernel on the card (every VGG 3x3 conv on the conv kernel,
+    Cin = 3 included) against the card's plain path and against the CPU."""
+    cpu = LPIPS(device="cpu")
+    init_module_(cpu, torch.Generator().manual_seed(20))
+    with torch.no_grad():    # LPIPS's lin weights are non-negative
+        for k in range(5):
+            getattr(cpu, f"lin{k}").model["1"].weight.abs_()
+    gpu = LPIPS()
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    x = seeded((GAN_BATCH, 256, 256, 3), 21, device="cpu").tanh()
+    y = (x + 0.3 * seeded(x.shape, 22, device="cpu")).clamp(-1, 1)
+    with torch.no_grad():
+        want = cpu(x, y)
+        plain = gpu(x.cuda(), y.cuda())
+        with all_kernels():
+            zero_launches()
+            got = gpu(x.cuda(), y.cuda())
+            n = conv3x3.launches
+    if n != 2 * 13:
+        raise AssertionError(f"LPIPS all-kernel launched {n} convs, not "
+                             f"13 for each image")
+    errs = ((got.cpu() - want).abs().max().item(),
+            (got - plain).abs().max().item())
+    if not max(errs) <= LPIPS_ATOL:
+        raise AssertionError(f"LPIPS card vs CPU, kernel vs plain {errs} > "
+                             f"{LPIPS_ATOL}")
+    log(f"LPIPS (seeded weights) on {card}: batch {GAN_BATCH}, 256^2, "
+        f"distances {[round(v, 5) for v in want.flatten().tolist()]}; "
+        f"all-kernel card vs CPU max_abs_err {errs[0]:.3e}, vs the card's "
+        f"plain path {errs[1]:.3e} (tol {LPIPS_ATOL}); {n} conv launches")
+
+
 def build_msvqgan():
     t0 = time.perf_counter()
     model = instantiate_from_config(load_yaml(str(MSVQ))["model"], seed=0)
@@ -1531,6 +2130,18 @@ def build_msvqgan():
         f"{sum(p.numel() for p in model.parameters())} parameters, built "
         f"in {time.perf_counter() - t0:.2f} s")
     return model
+
+
+def build_gan_loss():
+    """The MS-VQGAN config's loss on the card, its discriminator seeded;
+    without local LPIPS weights it warns and trains with
+    perceptual_weight 0, as the JAX package does."""
+    loss = instantiate_from_config(_MSVQ_CFG["model"]["params"]["lossconfig"],
+                                   seed=0)
+    log(f"MS-VQGAN loss: {type(loss).__name__}, LPIPS "
+        f"{'on' if loss.use_lpips else 'off (no local weights)'}, "
+        f"{sum(p.numel() for p in loss.parameters())} parameters")
+    return loss
 
 
 def build_main_model(config):
@@ -1638,6 +2249,9 @@ def main():
     toy_encode_phase("default")
     with all_kernels():
         toy_encode_phase("all-kernel")
+    toy_training_phase("default")
+    with all_kernels():
+        toy_training_phase("all-kernel")
     mark("toy phases")
 
     model = build_main_model(T2I)
@@ -1651,14 +2265,33 @@ def main():
     first_stage_phase(card, model, "t2i", "default")
     with all_kernels():
         first_stage_phase(card, model, "t2i", "all-kernel")
+    mark("t2i first stage")
+    other += diffusion_sites_phase(model)
+    mark("diffusion train step sites")
+    diffusion_training_phase(card, model, "default", torch.bfloat16,
+                             TRAIN_STEPS)
+    with all_kernels():
+        diffusion_training_phase(card, model, "all-kernel", torch.bfloat16,
+                                 TRAIN_STEPS)
+    diffusion_training_phase(card, model, "default", None, (1, 0))
+    mark("t2i diffusion training")
     del model
     torch.cuda.empty_cache()
     model = build_msvqgan()
     forward_with_aux_phase(card, model, "default")
     with all_kernels():
         forward_with_aux_phase(card, model, "all-kernel")
-    mark("t2i first stage and forward_with_aux")
-    del model
+    mark("forward_with_aux")
+    loss = build_gan_loss()
+    other += gan_sites_phase(model, loss)
+    mark("GAN step sites")
+    gan_training_phase(card, model, loss, "default", GAN_STEPS)
+    with all_kernels():
+        gan_training_phase(card, model, loss, "all-kernel", GAN_STEPS)
+    mark("MS-VQGAN GAN training")
+    lpips_phase(card)
+    mark("LPIPS")
+    del model, loss
     torch.cuda.empty_cache()
     model = build_main_model(L2I)
     other += layout2i_sites_phase(model)

@@ -2,9 +2,9 @@
 
 YAML configs written against the original torch code name targets such as
 ``frido.models.diffusion.frido.FridoDiffusion``; the alias table maps the
-ones the port builds onto port classes, so the diffusion configs under
-``configs/frido/`` and ``configs/msvqgan/msvqgan_f16f8_coco.yaml`` read
-unmodified.
+ones the port builds onto port classes (the models, the VQ-GAN loss and
+the LR schedulers), so the diffusion configs under ``configs/frido/`` and
+``configs/msvqgan/msvqgan_f16f8_coco.yaml`` read unmodified.
 """
 
 from __future__ import annotations
@@ -37,6 +37,14 @@ _TARGET_ALIASES: Dict[str, str] = {
         "frido_tpu_torch.models.msvqgan.DummyLoss",
     "taming.modules.losses.vqperceptual.DummyLoss":
         "frido_tpu_torch.models.msvqgan.DummyLoss",
+    "taming.modules.losses.vqperceptual.VQLPIPSWithDiscriminator":
+        "frido_tpu_torch.losses.vqperceptual.VQLPIPSWithDiscriminator",
+    "frido.modules.losses.vqperceptual.VQLPIPSWithDiscriminator":
+        "frido_tpu_torch.losses.vqperceptual.VQLPIPSWithDiscriminator",
+    "frido.lr_scheduler.LambdaLinearScheduler":
+        "frido_tpu_torch.training.optim.LambdaLinearScheduler",
+    "frido.lr_scheduler.LambdaWarmUpCosineScheduler":
+        "frido_tpu_torch.training.optim.LambdaWarmUpCosineScheduler",
 }
 
 

@@ -14,6 +14,8 @@ kernel (2-d)    Dense   [O, I]                [I, O] -> [O, I]
 scale           norm ``weight``               as-is
 embedding       Embed ``weight``              as-is
 bias            ``bias``                      as-is
+logvar          FridoDiffusion ``logvar``     as-is (``learn_logvar``)
+loc, scale_v    ActNorm ``loc``, ``scale``    as-is
 ==============  ============================  ==========================
 
 ``kernel_t`` is the JAX ``ConvTranspose2d``'s input-dilated conv kernel,
@@ -21,8 +23,14 @@ bias            ``bias``                      as-is
 transpose would give a kernel of the right shape turned by 180 degrees.
 
 The ``ema`` variable collection (``EMAVectorQuantizer``'s ``embedding``,
-``cluster_size`` and ``embed_avg``) maps onto buffers of the same names,
-as-is. Every leaf is mapped; none is dropped.
+``cluster_size`` and ``embed_avg``) and the ``batch_stats`` collection
+(the discriminator's ``running_mean`` and ``running_var``) map onto
+buffers of the same names, as-is. Every leaf is mapped; none is dropped.
+
+:func:`jax_train_state_to_port` carries a JAX diffusion ``TrainState``
+(``frido_tpu/training/trainer.py``) across: the weights, the EMA of
+``params["params"]["model"]`` and its counter, the optax AdamW moments and
+update count (and ``MultiSteps``' running mean), and the step.
 """
 
 from __future__ import annotations
@@ -33,19 +41,20 @@ import numpy as np
 import torch
 
 LEAF_TO_TORCH = {"kernel": "weight", "kernel_t": "weight", "scale": "weight",
-                 "bias": "bias", "embedding": "weight"}
-COLLECTIONS = ("params", "ema")
+                 "bias": "bias", "embedding": "weight", "logvar": "logvar",
+                 "loc": "loc", "scale_v": "scale"}
+COLLECTIONS = ("params", "ema", "batch_stats")
 
 
 def torch_key(path: Tuple[str, ...], collection: str = "params") -> str:
     """('down__0__block__1', 'norm1', 'scale') ->
-    'down.0.block.1.norm1.weight'; leaves of the ``ema`` collection keep
-    their names."""
+    'down.0.block.1.norm1.weight'; leaves of the ``ema`` and
+    ``batch_stats`` collections keep their names."""
     parts = []
     for comp in path[:-1]:
         parts.extend(comp.split("__"))
     leaf = path[-1]
-    parts.append(leaf if collection == "ema" else LEAF_TO_TORCH[leaf])
+    parts.append(leaf if collection != "params" else LEAF_TO_TORCH[leaf])
     return ".".join(parts)
 
 
@@ -101,6 +110,63 @@ def load_jax_params(module: torch.nn.Module,
     """Load a JAX variables tree into ``module`` with ``strict=True``: every
     leaf has its tensor, every tensor its leaf."""
     state = jax_params_to_state_dict(variables)
-    tensors = {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+    tensors = {k: torch.from_numpy(np.array(v, np.float32))
                for k, v in state.items()}
     module.load_state_dict(tensors, strict=True)
+
+
+def _arrays(tree: Any) -> Any:
+    """``tree`` without its non-array leaves (optax's ``MaskedNode`` at
+    the frozen leaves) and the subtrees they leave empty."""
+    if isinstance(tree, Mapping):
+        out = {k: _arrays(v) for k, v in tree.items()}
+        return {k: v for k, v in out.items()
+                if v is not None and not (isinstance(v, dict) and not v)}
+    return tree if hasattr(tree, "shape") else None
+
+
+def _find(tree: Any, fields: Tuple[str, ...]) -> Any:
+    """The first node of an optax state (nested named tuples, tuples and
+    dicts) that has every attribute in ``fields``."""
+    if all(hasattr(tree, f) for f in fields):
+        return tree
+    children = (tree.values() if isinstance(tree, Mapping) else
+                tree if isinstance(tree, tuple) else ())
+    for child in children:
+        found = _find(child, fields)
+        if found is not None:
+            return found
+    return None
+
+
+def _state_dict(tree: Any) -> Dict[str, np.ndarray]:
+    """Arrays of a params-shaped tree in torch layout, fp32."""
+    return {k: np.asarray(v, np.float32)
+            for k, v in jax_params_to_state_dict(_arrays(tree)).items()}
+
+
+def jax_train_state_to_port(state: Any) -> Dict[str, Any]:
+    """A JAX diffusion ``TrainState`` as plain numpy: ``params`` (the
+    whole model's state dict), ``ema`` (the denoiser wrapper's, keys
+    relative to ``model.model``), ``ema_updates``, ``step`` and ``adam``:
+    ``count``, ``mu`` and ``nu`` (state dicts of the trainable tensors),
+    and with ``MultiSteps`` ``mini_step`` and ``acc``, else None. Read
+    from the optax state by field names, without importing optax."""
+    adam = _find(state.opt_state, ("mu", "nu", "count"))
+    multi = _find(state.opt_state, ("mini_step", "acc_grads"))
+    if adam is None:
+        raise ValueError("no Adam state in the TrainState's opt_state")
+    return {
+        "params": _state_dict(state.params),
+        "ema": _state_dict(state.ema_params),
+        "ema_updates": int(np.asarray(state.ema_updates)),
+        "step": int(np.asarray(state.step)),
+        "adam": {
+            "count": int(np.asarray(adam.count)),
+            "mu": _state_dict(adam.mu),
+            "nu": _state_dict(adam.nu),
+            "mini_step": (None if multi is None
+                          else int(np.asarray(multi.mini_step))),
+            "acc": None if multi is None else _state_dict(multi.acc_grads),
+        },
+    }

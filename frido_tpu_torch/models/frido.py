@@ -17,8 +17,17 @@ DPM-Solver++(2M), the full-T vanilla chain); ``encode_first_stage`` and
 ``decode_first_stage`` map images to scaled latents and back. With
 ``split_input_params`` (``ks``, ``stride``, optional ``vqf``) the UNet and
 the decoder run tile by tile on latents wider than ``ks``
-(``ops/tiling.py``). Not ported yet: training (losses, ``q_sample``,
-``init_scale_by_std``), checkpoint loading and the image-log galleries.
+(``ops/tiling.py``).
+
+Training (``models/frido.py:463-543`` of the JAX package):
+``q_sample_stage`` noises one stage's channel window, ``p_losses`` is one
+stage's eps loss, ``training_loss`` the ``stage_loss_ratio``-weighted sum
+over the stages, ``init_scale_by_std`` sets each stage's scale factor to
+1/std of one batch's latents. The first stage is frozen: it stays in eval
+mode whatever ``train()`` is told, and encodes without a gradient. The
+per-timestep ``logvar`` is a buffer, or a parameter with ``learn_logvar``.
+``training/trainer.py`` runs the step. Not ported yet: pixel-space DDPM,
+checkpoint loading and the image-log galleries.
 """
 
 from __future__ import annotations
@@ -55,6 +64,17 @@ _FRIDO_DEFAULTS: Dict[str, Any] = dict(
     adopted_scale_factor=False,
     adopted_scale_factor_value=None,
     specify_channels=(),
+    loss_type="l2",
+    original_elbo_weight=0.0,
+    l_simple_weight=1.0,
+    noise_mix_ratio=0.0,
+    stage_loss_ratio=(0.5, 0.5),
+    scale_by_std=False,
+    cond_stage_trainable=False,
+    num_timesteps_cond=1,
+    use_ema=True,
+    learn_logvar=False,
+    logvar_init=0.0,
 )
 
 
@@ -111,6 +131,12 @@ class FridoDiffusion(nn.Module):
         self.embed_dim_list: List[int] = list(
             first_stage_config["params"]["embed_dim"])
         self.num_stage = len(self.embed_dim_list)
+        if len(self.stage_loss_ratio) != self.num_stage \
+                and self.num_stage == 1:
+            # the two-stage default ratio does not apply to one stage
+            self.stage_loss_ratio = (1.0,)
+        if self.loss_type not in ("l1", "l2"):
+            raise NotImplementedError(f"loss_type {self.loss_type!r}")
         self.model = DiffusionWrapper(unet_config, device=self.device)
         self.first_stage_model = instantiate_from_config(
             first_stage_config, device=self.device, seed=None)
@@ -129,12 +155,42 @@ class FridoDiffusion(nn.Module):
         else:
             self.scale_factors = np.asarray(self.scale_factor, np.float32)
 
+        # per-timestep log-variance of the loss; a parameter (the optimizer
+        # sees it, as the JAX package puts it in the params tree) only with
+        # learn_logvar, else a buffer outside the state dict
+        logvar = torch.full((self.timesteps,), float(self.logvar_init),
+                            device=self.device)
+        if self.learn_logvar:
+            self.logvar = nn.Parameter(logvar)
+        else:
+            self.register_buffer("logvar", logvar, persistent=False)
+        self._tables = {}
+
         seed_init_(self, seed, self.device)
         self.eval()
 
+    def train(self, mode: bool = True) -> "FridoDiffusion":
+        """Training mode for the denoiser and the cond stage; the frozen
+        first stage stays in eval mode (no codebook EMA update, no Gumbel
+        noise), as the JAX trainer encodes it deterministically."""
+        super().train(mode)
+        self.first_stage_model.eval()
+        return self
+
+    def _table(self, name: str) -> torch.Tensor:
+        """A schedule array as an fp32 tensor on the model's device."""
+        if name not in self._tables:
+            self._tables[name] = torch.as_tensor(
+                np.asarray(getattr(self.schedule, name), np.float32),
+                device=self.device)
+        return self._tables[name]
+
     # ------------------------------------------------------------------
     def _scale_latent(self, z: torch.Tensor, invert: bool) -> torch.Tensor:
-        """Per-stage channel-block scaling (``models/frido.py:367-380``)."""
+        """Per-stage channel-block scaling (``models/frido.py:367-380``), in
+        fp32 at least: a bf16 latent is promoted, as the JAX package's fp32
+        factors promote it."""
+        z = z.to(torch.promote_types(z.dtype, torch.float32))
         sf = self.scale_factors
         if sf.ndim == 0:
             return z / float(sf) if invert else z * float(sf)
@@ -148,9 +204,9 @@ class FridoDiffusion(nn.Module):
             parts.append(z[..., start:])
         return torch.cat(parts, dim=-1)
 
-    @torch.no_grad()
     def get_learned_conditioning(self, tokens) -> torch.Tensor:
-        """int token ids [B, T] -> per-token context [B, T, n_embed]."""
+        """int token ids [B, T] -> per-token context [B, T, n_embed]. Under
+        autograd, as the cond stage trains with the denoiser."""
         if self.cond_stage_model is None:
             raise ValueError("unconditional model has no cond stage")
         tokens = torch.as_tensor(np.asarray(tokens) if not isinstance(
@@ -227,6 +283,96 @@ class FridoDiffusion(nn.Module):
         """Each stage's channel block of an unscaled NHWC latent through its
         codebook."""
         return self.first_stage_model.quantize_latent(z)
+
+    # ------------------------------------------------------------------
+    # training (models/frido.py:463-543)
+    # ------------------------------------------------------------------
+    def _window(self, stage: int):
+        return (sum(self.embed_dim_list[:stage]),
+                sum(self.embed_dim_list[:stage + 1]))
+
+    def q_sample_stage(self, x_start: torch.Tensor, t: torch.Tensor,
+                       stage: int, noise: torch.Tensor) -> torch.Tensor:
+        """Channel-windowed forward noising of an NHWC latent: below the
+        stage's window the channels are clean (with the noise_mix_ratio
+        leak), inside it noised at t, above it pure noise."""
+        start, end = self._window(stage)
+        sqrt_ac = self._table("sqrt_alphas_cumprod")[t][:, None, None, None]
+        sqrt_1mac = self._table("sqrt_one_minus_alphas_cumprod")[t][
+            :, None, None, None]
+        parts = []
+        if start > 0:
+            clean = x_start[..., :start]
+            if self.noise_mix_ratio != 0.0:
+                tau = self.noise_mix_ratio
+                clean = (1 - tau) * clean + tau * noise[..., :start]
+            parts.append(clean)
+        parts.append(sqrt_ac * x_start[..., start:end]
+                     + sqrt_1mac * noise[..., start:end])
+        if end < x_start.shape[-1]:
+            parts.append(noise[..., end:])
+        return torch.cat(parts, dim=-1)
+
+    def p_losses(self, z: torch.Tensor, context: Optional[torch.Tensor],
+                 t: torch.Tensor, stage: int, noise: torch.Tensor,
+                 compute_dtype=None):
+        """One stage's eps loss over its channel window: (loss, logs).
+        ``compute_dtype`` runs the UNet in that dtype; the loss math stays
+        fp32."""
+        start, end = self._window(stage)
+        x_noisy = self.q_sample_stage(z, t, stage, noise)
+        if compute_dtype is not None:
+            x_noisy = x_noisy.to(compute_dtype)
+            if context is not None:
+                context = context.to(compute_dtype)
+        model_out = self.apply_model(x_noisy, t, context, stage).float()
+        target = noise if self.parameterization == "eps" else z
+        target = target[..., start:end]   # the split head gives the window
+        if self.loss_type == "l1":
+            per = (model_out - target).abs()
+        else:
+            per = (model_out - target).square()
+        loss_simple = per.mean(dim=(1, 2, 3))
+        logvar_t = self.logvar[t]
+        loss = loss_simple / torch.exp(logvar_t) + logvar_t
+        loss = self.l_simple_weight * loss.mean()
+        lvlb = (self._table("lvlb_weights")[t] * loss_simple).mean()
+        loss = loss + self.original_elbo_weight * lvlb
+        return loss, {f"loss_simple_stage{stage}": loss_simple.mean(),
+                      f"loss_vlb_stage{stage}": lvlb}
+
+    def training_loss(self, z: torch.Tensor, context: Optional[torch.Tensor],
+                      t: torch.Tensor, noise: torch.Tensor,
+                      compute_dtype=None):
+        """The per-stage losses weighted by ``stage_loss_ratio``:
+        (loss, logs)."""
+        if len(self.stage_loss_ratio) != self.num_stage:
+            raise ValueError(f"stage_loss_ratio {self.stage_loss_ratio} for "
+                             f"{self.num_stage} stages")
+        total, logs = 0.0, {}
+        for s, ratio in enumerate(self.stage_loss_ratio):
+            loss, d = self.p_losses(z, context, t, s, noise, compute_dtype)
+            total = total + loss * ratio
+            logs.update({k: v * ratio for k, v in d.items()})
+        logs["loss"] = total
+        return total, logs
+
+    @torch.no_grad()
+    def init_scale_by_std(self, images: torch.Tensor) -> np.ndarray:
+        """Each stage's scale factor set to 1/std (the population std) of
+        its channel block of one batch's unscaled latents; returns the new
+        factors. A training script calls it before the first step."""
+        if not self.scale_by_std:
+            raise ValueError("init_scale_by_std needs scale_by_std")
+        z = self.first_stage_model.encode_interface(
+            images.to(self.device))
+        factors, start = [], 0
+        for d in self.embed_dim_list:
+            std = z[..., start:start + d].float().std(correction=0)
+            factors.append(1.0 / float(std))
+            start += d
+        self.scale_factors = np.asarray(factors, np.float32)
+        return self.scale_factors
 
     @torch.no_grad()
     def sample(self, batch_size: int, context=None, uncond_context=None,

@@ -18,6 +18,8 @@ the plain ``AttentionBlock`` trunk (``use_spatial_transformer: false``; the
 t2i config takes the SpatialTransformer branch, ``:323-329``), class
 labels, stage experts, resblock up/down resampling, scale-shift norm,
 position embeddings, the mscond branch and the codebook-id head.
+``dropout > 0`` raises in training mode (every config sets 0); in eval mode
+dropout is the identity, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -174,6 +176,7 @@ class PyUNetModel(nn.Module):
         mc = model_channels
         ted = mc * 4
         self.model_channels = mc
+        self.dropout = dropout
         self.num_stage = num_stage
         self.split = list(split_embed_dim_list)
         if sum(self.split) != in_channels:
@@ -276,6 +279,9 @@ class PyUNetModel(nn.Module):
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 context: Optional[torch.Tensor] = None, stage: int = 0,
                 spade_pre: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+        if self.dropout > 0.0 and self.training:
+            raise NotImplementedError("PyUNet dropout in training is not "
+                                      "ported")
         emb = timestep_embedding(timesteps, self.model_channels)
         emb = self.time_embed["2"](F.silu(self.time_embed["0"](emb)))
         if self.num_stage > 1:

@@ -409,6 +409,81 @@ def test_new_kernels_backward_match_plain_autograd(cuda):
           [cx, cw, cb, ns, nb, g, bt])
 
 
+def _training_site(name, cuda):
+    """(kernel call, plain call, inputs) of one training site."""
+    bf16 = torch.bfloat16
+    if name == "fused-spade-bf16":          # UNet ResBlock prologue, b 32
+        shape = (32, 576, 32, 32)
+        x, w, b = _conv_inputs(shape, 192, cuda, bf16, 80)
+        ns = 1.0 + 0.1 * _randn((576,), 83, cuda)
+        nb = 0.1 * _randn((576,), 84, cuda)
+        g, bt = ((0.2 * _randn(shape, s, cuda)).to(bf16) for s in (85, 86))
+        return (lambda *a: conv3x3_norm_silu(*a[:5], 32, 1e-5, *a[5:]),
+                lambda *a: conv3x3_norm_silu_plain(*a[:5], 32, 1e-5, *a[5:]),
+                [x, w, b, ns, nb, g, bt])
+    if name == "smalls-bf16":               # UNet self-attention at 16^2
+        q, k, v = (_randn((32, 256, 384), s, cuda, bf16) for s in (87, 88,
+                                                                   89))
+        return (lambda *a: smalls_attention(*a, 384 ** -0.5),
+                lambda *a: attention_plain(*a, 384 ** -0.5), [q, k, v])
+    if name == "group-norm-bf16":           # bf16 encode at 256^2
+        x = _randn((32, 128, 256, 256), 90, cuda, bf16)
+        w = 1.0 + 0.1 * _randn((128,), 91, cuda)
+        b = 0.1 * _randn((128,), 92, cuda)
+        return (lambda *a: group_norm(*a, 32, 1e-6, True),
+                lambda *a: group_norm_plain(*a, 32, 1e-6, True), [x, w, b])
+    if name == "conv-cin3-bf16":            # encoder conv_in, bf16 encode
+        return conv3x3, conv3x3_plain, list(_conv_inputs(
+            (32, 3, 256, 256), 128, cuda, bf16, 93))
+    bh, d, dtype = {"flash-bf16": (32, 256, bf16),     # bf16 encode, d 256
+                    "flash-fp32": (6, 512, torch.float32)}[name]  # GAN dec
+    q, k, v = (_randn((bh, 1024, d), s, cuda, dtype) for s in (94, 95, 96))
+    return (lambda *a: flash_attention(*a, d ** -0.5),
+            lambda *a: attention_plain(*a, d ** -0.5), [q, k, v])
+
+
+@pytest.mark.parametrize("name", [
+    "fused-spade-bf16", "smalls-bf16", "group-norm-bf16", "conv-cin3-bf16",
+    "flash-bf16", "flash-fp32"])
+def test_backward_at_training_sites(cuda, name):
+    """At the training steps' shapes (diffusion batch 32, GAN batch 6):
+    each kernel under autograd gives the plain version's gradients for one
+    seeded cotangent, to every input (x, the weights, the norm affine and
+    SPADE's gamma and beta included); the backward recomputes through the
+    plain version in the inputs' dtype, so they agree within 1e-5 of the
+    largest gradient (fp32; 2^-7 in bf16, where cuDNN may pick another
+    algorithm between two calls); the forward is held to the plain version
+    in fp32 with the tolerances of the kernel tests above."""
+    kernel, plain, inputs = _training_site(name, cuda)
+    dtype = inputs[0].dtype
+
+    def run(fn):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        out = fn(*leaves)
+        cot = _randn(tuple(out.shape), 97, cuda, out.dtype)
+        return out.detach(), torch.autograd.grad(out, leaves, cot)
+
+    got, got_g = run(kernel)
+    _, want_g = run(plain)
+    torch.cuda.synchronize()
+    with torch.no_grad():     # the forward against fp32, as above
+        want = plain(*(t.float() for t in inputs))
+    scale = _rms(want) if "conv" in name or "fused" in name else 1.0
+    fwd_atol = (2.0 ** -6 if "fused" in name else 1e-4 if "conv" in name
+                else 5e-5) * scale
+    if dtype == torch.bfloat16 and name.startswith(("smalls", "flash")):
+        fwd_atol += 2.0 ** -9 * inputs[2].float().abs().max().item()
+    ok, err = _within(got, want, fwd_atol, dtype)
+    assert ok, err
+    del want
+    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    for i, (a, r) in enumerate(zip(got_g, want_g)):
+        assert a.shape == r.shape and a.dtype == r.dtype, i
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= rel * r.float().abs().max().item(), (i, err)
+        assert bool(torch.isfinite(a.float()).all()), i
+
+
 def _fused_case(shape, cout, spade, groups, dtype, device, seed=40,
                 magnitude=1.0):
     """One fused call against its plain version: (ok, max error, output)."""

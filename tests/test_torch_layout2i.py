@@ -44,7 +44,7 @@ from frido_tpu_torch.ops.cuda.attention import (MAX_SMEM, flash_plan,
                                                 smalls_plan)
 from tests.test_torch_attention_numerics import _coverage
 from tests.test_torch_conv_numerics import _check_plan
-from tests.test_torch_models import _random_params
+from tests.test_torch_models import _jitted, _random_params
 from tests.test_torch_norm_vq_numerics import (
     test_group_norm_plan_covers_every_element_once as _check_gn_plan,
     test_vq_plan_parts_cover_the_codebook_once as _check_vq_plan)
@@ -129,13 +129,14 @@ def test_layout2i_chain_matches_jax(models):
     tokens = np.random.default_rng(7).integers(0, 100, (2, CTX_LEN),
                                                dtype=np.int32)
     utokens = np.zeros_like(tokens)
-    ctx_j = jmodel.get_learned_conditioning(jparams, jnp.asarray(tokens))
-    uctx_j = jmodel.get_learned_conditioning(jparams, jnp.asarray(utokens))
+    cond = _jitted(jmodel, "get_learned_conditioning")
+    ctx_j = cond(jparams, jnp.asarray(tokens))
+    uctx_j = cond(jparams, jnp.asarray(utokens))
     ctx_p = port.get_learned_conditioning(tokens)
     uctx_p = port.get_learned_conditioning(torch.from_numpy(utokens))
     assert ctx_p.shape == (2, CTX_LEN, 32)
-    np.testing.assert_allclose(ctx_p.numpy(), np.asarray(ctx_j), atol=1e-4,
-                               rtol=0)
+    np.testing.assert_allclose(ctx_p.detach().numpy(), np.asarray(ctx_j),
+                               atol=1e-4, rtol=0)
 
     x_init = _np(8, (2, 16, 16, 6))
     z_j = np.asarray(jax.jit(lambda p, c, u, x: jmodel.sample(
@@ -149,7 +150,7 @@ def test_layout2i_chain_matches_jax(models):
     assert np.abs(z_j - x_init).max() > 1e-2   # the chain moved the latent
     np.testing.assert_allclose(z_p.numpy(), z_j, atol=1e-3, rtol=0)
 
-    want_img, want_codes = jmodel.decode_first_stage_with_codes(
+    want_img, want_codes = _jitted(jmodel, "decode_first_stage_with_codes")(
         jparams, jnp.asarray(z_j))
     zt = torch.from_numpy(z_j)
     with torch.no_grad():

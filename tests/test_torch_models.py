@@ -110,6 +110,18 @@ def models():
     return jmodel, jparams, port
 
 
+_JITTED = {}
+
+
+def _jitted(jmodel, method):
+    """``jmodel``'s ``method`` jitted once per model: an eager flax call
+    dispatches (and on its first call compiles) every op alone."""
+    key = (id(jmodel), method)
+    if key not in _JITTED:
+        _JITTED[key] = (jmodel, jax.jit(getattr(jmodel, method)))
+    return _JITTED[key][1]
+
+
 def _np(seed, shape, scale=1.0):
     return (scale * np.random.default_rng(seed).standard_normal(shape)
             ).astype(np.float32)
@@ -164,7 +176,7 @@ def _decided(z, codebook):
 def _check_decode(jmodel, jparams, port, z):
     """Both decoders on the same scaled latent: codes under the margin rule,
     then the images."""
-    want_img, want_codes = jmodel.decode_first_stage_with_codes(
+    want_img, want_codes = _jitted(jmodel, "decode_first_stage_with_codes")(
         jparams, jnp.asarray(z))
     zt = _t(z)
     with torch.no_grad():
@@ -207,12 +219,13 @@ def test_slice_tokens_to_image_matches_jax(models, cfg_mode):
     tokens = np.random.default_rng(7).integers(0, 100, (2, CTX_LEN),
                                                dtype=np.int32)
     utokens = np.zeros_like(tokens)
-    ctx_j = jmodel.get_learned_conditioning(jparams, jnp.asarray(tokens))
-    uctx_j = jmodel.get_learned_conditioning(jparams, jnp.asarray(utokens))
+    cond = _jitted(jmodel, "get_learned_conditioning")
+    ctx_j = cond(jparams, jnp.asarray(tokens))
+    uctx_j = cond(jparams, jnp.asarray(utokens))
     ctx_p = port.get_learned_conditioning(tokens)
     uctx_p = port.get_learned_conditioning(_t(utokens))
-    np.testing.assert_allclose(ctx_p.numpy(), np.asarray(ctx_j), atol=1e-4,
-                               rtol=0)
+    np.testing.assert_allclose(ctx_p.detach().numpy(), np.asarray(ctx_j),
+                               atol=1e-4, rtol=0)
     x_init = _np(8, (2, 16, 16, 8))
     z_j = jax.jit(lambda p, c, u, x: jmodel.sample(
         p, jax.random.PRNGKey(0), 2, context=c, uncond_context=u, steps=4,

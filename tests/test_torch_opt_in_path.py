@@ -39,7 +39,8 @@ from frido_tpu_torch.nn.vqgan import AttnBlock
 from frido_tpu_torch.ops.cuda.attention import smalls_attention
 from frido_tpu_torch.ops.cuda.conv import conv3x3, conv3x3_norm_silu
 from frido_tpu_torch.ops.cuda.norm import group_norm
-from test_torch_models import CONFIG, CTX_LEN, _check_decode, _np, _t
+from test_torch_models import (CONFIG, CTX_LEN, _check_decode, _jitted, _np,
+                               _t)
 from test_torch_models import models  # noqa: F401  (the module fixture)
 
 torch.set_num_threads(2)
@@ -122,7 +123,8 @@ def test_unported_conv_mode_raises(models, switches):  # noqa: F811
         _forward(port, 0)
 
 
-def test_param_tree_is_the_same_under_the_switches(no_switches):
+def test_param_tree_is_the_same_under_the_switches(models,  # noqa: F811
+                                                    no_switches):
     def tree():
         jmodel = jax_instantiate(CONFIG)
         shapes = jax.eval_shape(
@@ -130,7 +132,8 @@ def test_param_tree_is_the_same_under_the_switches(no_switches):
             jax.random.PRNGKey(0))
         return jax.tree_util.tree_map(lambda s: s.shape, shapes)
 
-    default = tree()
+    # the module's model was built in the default mode
+    default = jax.tree_util.tree_map(lambda a: a.shape, models[1])
     for name, value in SWITCHES.items():
         no_switches.setenv(name, value)
     no_switches.setenv("FRIDO_PALLAS", "interpret")
@@ -165,8 +168,9 @@ def test_slice_tokens_to_image_matches_jax_under_the_switches(
     x_init = _np(8, (2, 16, 16, 8))
     for name in (*SWITCHES, "FRIDO_PALLAS"):
         monkeypatch.delenv(name, raising=False)
-    ctx_j = jmodel.get_learned_conditioning(jparams, jnp.asarray(tokens))
-    uctx_j = jmodel.get_learned_conditioning(jparams, jnp.asarray(utokens))
+    cond = _jitted(jmodel, "get_learned_conditioning")
+    ctx_j = cond(jparams, jnp.asarray(tokens))
+    uctx_j = cond(jparams, jnp.asarray(utokens))
     z_j = np.asarray(jax.jit(lambda p, c, u, x: jmodel.sample(
         p, jax.random.PRNGKey(0), 2, context=c, uncond_context=u, steps=4,
         eta=0.0, guidance_scale=1.5, sampler="plms", x_init=x,
@@ -177,8 +181,8 @@ def test_slice_tokens_to_image_matches_jax_under_the_switches(
     before = _calls()
     ctx_p = port.get_learned_conditioning(tokens)
     uctx_p = port.get_learned_conditioning(_t(utokens))
-    np.testing.assert_allclose(ctx_p.numpy(), np.asarray(ctx_j), atol=1e-4,
-                               rtol=0)
+    np.testing.assert_allclose(ctx_p.detach().numpy(), np.asarray(ctx_j),
+                               atol=1e-4, rtol=0)
     z_p = port.sample(2, context=ctx_p, uncond_context=uctx_p, steps=4,
                       eta=0.0, guidance_scale=1.5, x_init=_t(x_init),
                       cfg_mode="sequential")

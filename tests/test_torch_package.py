@@ -1,8 +1,9 @@
 """Import and device hygiene of the port, and full-width weight-bridge
 coverage of the t2i configuration.
 
-- No file of ``frido_tpu_torch/`` and not ``chip_smoke.py`` imports jax,
-  flax or the JAX package.
+- No file of ``frido_tpu_torch/`` (the training and loss modules
+  included) and not ``chip_smoke.py`` imports jax, flax, optax or the JAX
+  package.
 - Entry points run on the card unless told otherwise: without CUDA,
   building the model without ``device="cpu"`` raises.
 - On CPU tensors the kernel wrappers take their plain versions and never
@@ -35,7 +36,7 @@ torch.set_num_threads(2)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 T2I = REPO / "configs" / "frido" / "t2i" / "frido_f16f8_coco.yaml"
-FORBIDDEN = {"jax", "jaxlib", "flax", "frido_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "frido_tpu"}
 
 
 def _imported_roots(path):
@@ -52,6 +53,12 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "frido_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    names = {str(f.relative_to(REPO / "frido_tpu_torch")) for f in files
+             if "frido_tpu_torch" in f.parts}
+    assert {f"training/{m}.py" for m in ("optim", "ema", "trainer",
+                                         "vqgan_trainer")} <= names
+    assert {f"losses/{m}.py" for m in ("discriminator", "lpips",
+                                       "vqperceptual")} <= names
     bad = {str(f.relative_to(REPO)): sorted(set(_imported_roots(f))
                                            & FORBIDDEN)
            for f in files}
