@@ -2,17 +2,22 @@
 
     python3 chip_smoke.py
 
-Two main paths, each at full width with batch 4, classifier-free guidance
-1.5 (sequential), a bf16 UNet over two pyramid stages and an fp32 MS-VQGAN
+Three main paths, each at full width with batch 4, classifier-free
+guidance 1.5, a bf16 UNet over two pyramid stages and an fp32 MS-VQGAN
 decode (per-scale VQ re-quantization, post_quant_conv, the 256^2 conv
 decoder):
 
 - t2i, ``configs/frido/t2i/frido_f16f8_coco.yaml``: 77 token ids -> BERT
-  context -> PLMS over a 32^2 x 8 latent;
+  context -> PLMS over a 32^2 x 8 latent (CFG sequential);
 - layout2i f8f4, ``configs/frido/layout2i/frido_f8f4_coco_seg.yaml``: 96
-  bbox token ids -> BERT context -> DPM-Solver++(2M), 25 steps, over a
+  bbox token ids -> BERT context -> DPM-Solver++(2M), 10 steps, over a
   64^2 x 6 latent (D = 3 codebooks of 4096; the decoder attends over 4096
-  tokens, the UNet over 1024 at 32^2).
+  tokens, the UNet over 1024 at 32^2; CFG sequential);
+- clip-t2i, ``configs/frido/t2i/frido_f16f8_coco_clip.yaml``, through the
+  sampling CLI (``python -m frido_tpu_torch.cli.sample_diffusion``) run in
+  process: a Lightning ``.ckpt`` and a caption -> the CLIP BPE tokenizer
+  -> the ViT-L/14 text tower's pooled, normalised embedding (a context of
+  one token) -> PLMS (CFG batched, the CLI's) -> PNGs.
 
 Beside them, each path's first stage encodes 256^2 images at batch 4 in
 fp32 (``encode_first_stage``: the MS-VQGAN encoder, the cross-scale fusion
@@ -76,7 +81,23 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    decode) and of its encode, and flash and the VQ argmin at the decode
    chunk of 32, each checked as in 5 unless checked before (in 2 or an
    earlier pass); then the layout2i path in each configuration, as in 4,
-   and its first stage, as in 5.
+   and its first stage, as in 5;
+8. the CLIP towers with seeded weights at full width, card against CPU in
+   fp32: the text tower on the CLIP tokenizer's [4, 77] ids of four
+   captions (pooled embedding and per-token states) and the ViT-L/14
+   image tower with ``clip_preprocess`` on four 256^2 images;
+9. the clip-t2i sites: every distinct kernel call of one all-kernel pass
+   of the clip-t2i model at batch 4, checked as in 7; among them the
+   UNet's cross-attention over the one CLIP token (nk = 1);
+10. the sampling CLI: a Lightning ``.ckpt`` of the seeded clip-t2i model
+   (a distinct EMA, a scalar scale factor) and vocab files written from
+   the fallback BPE vocabulary, under the CLI's strict-vocab default;
+   ``-r that.ckpt --prompt ... -plms -G -gs 1.5 -bs 4`` at 20 steps in the
+   default configuration and 10 all-kernel, then ``--no_ema``; launches
+   held to the architecture's, the PNGs read back, the images bit for bit
+   those of a direct ``sample`` + ``decode`` under the EMA with the CLI's
+   generator, ``--no_ema`` other images; checkpoint write and load
+   seconds, sampling seconds and img/s.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit; before that, one ``{"kernels": [...]}``
@@ -91,6 +112,7 @@ CUDA, or outside the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import json
@@ -99,6 +121,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -147,6 +170,7 @@ from frido_tpu_torch.training import (  # noqa: E402
 from frido_tpu_torch.tools.attention_ab import graph_ms  # noqa: E402
 
 T2I = REPO / "configs" / "frido" / "t2i" / "frido_f16f8_coco.yaml"
+CLIP_T2I = REPO / "configs" / "frido" / "t2i" / "frido_f16f8_coco_clip.yaml"
 L2I = REPO / "configs" / "frido" / "layout2i" / "frido_f8f4_coco_seg.yaml"
 MSVQ = REPO / "configs" / "msvqgan" / "msvqgan_f16f8_coco.yaml"
 
@@ -197,6 +221,10 @@ T2I_ENCODE_ARCH = dict(encode_3x3=43, encode_norms=46,
 L2I_ENCODE_ARCH = dict(encode_3x3=39, encode_norms=42,
                        encode_attn_tokens=[4096, 4096, 4096, 1024, 4096],
                        codebooks=2)
+# clip-t2i: the t2i UNet and first stage; the CLIP text tower's attention
+# is plain torch.matmul in every configuration (no kernel site), and the
+# UNet's cross-attention runs over the one pooled CLIP token
+CLIP_ARCH = dict(T2I_ARCH, bert_layers=0)
 GUIDANCE = 1.5
 DECODE_CHUNK = 32
 CTX_LEN = 77
@@ -205,7 +233,10 @@ CTX_LEN = 77
 # bbox token ids, which lie below the dataset's no_tokens of 1024), sampler
 # and eta, steps in the default and in the all-kernel configuration (t2i
 # at 20, to keep the script short; layout2i at bench.py's BENCH_SAMPLER=
-# dpmpp default of 25), the architecture's counts.
+# dpmpp default of 25), the architecture's counts. clip-t2i is driven through
+# the sampling CLI (``sampling_cli_phase``): 77 CLIP tokens give a context
+# of one token (``context_len``), PLMS 20 steps default and 10 all-kernel,
+# CFG batched (the CLI's), so one UNet call per evaluation.
 PATHS = {
     "t2i": dict(config=T2I, ctx_len=CTX_LEN, token_high=1, sampler="plms",
                 eta=0.0, steps=20, all_kernel_steps=20, arch=T2I_ARCH,
@@ -213,6 +244,9 @@ PATHS = {
     "layout2i": dict(config=L2I, ctx_len=96, token_high=1024,
                      sampler="dpmpp", eta=0.0, steps=25, all_kernel_steps=10,
                      arch=L2I_ARCH, encode_arch=L2I_ENCODE_ARCH),
+    "clip-t2i": dict(config=CLIP_T2I, ctx_len=CTX_LEN, context_len=1,
+                     sampler="plms", eta=0.0, steps=20, all_kernel_steps=10,
+                     arch=CLIP_ARCH, cfg_batched=True),
 }
 PROFILE_STEPS = 4   # a short chain under torch.profiler, for the breakdown
 # the samplers' toy phase: the toy schedule cut to 40 timesteps (the
@@ -242,6 +276,24 @@ L2I_NAMED_SITES = (
 )
 L2I_CHUNK_FLASH = (DECODE_CHUNK, 4096, 4096, 512, torch.float32)
 L2I_CHUNK_VQ = (DECODE_CHUNK * 64 * 64, 4096, 3)
+# the clip-t2i sites new to this script: the UNet's bf16 cross-attention
+# over the one pooled CLIP token at each SpatialTransformer resolution, at
+# the batch of 2 * BATCH that the CLI's batched CFG gives every UNet call;
+# and the same at BATCH, the UNet's batch without guidance
+CLIP_NAMED_SITES = tuple(
+    ("smalls_attention", (2 * BATCH, nq, 1, d, torch.bfloat16))
+    for nq, d in ((256, 384), (64, 576), (16, 960)))
+CLIP_UNGUIDED_SITES = tuple(
+    (name, (BATCH,) + site[1:]) for name, site in CLIP_NAMED_SITES)
+# the CLIP towers and the sampling CLI: four captions for the text tower,
+# one prompt for the CLI (its batch is -bs copies), the CLI's default seed
+CLIP_CAPTIONS = ("a red double-decker bus on a wet street at night",
+                 "two dogs playing with a ball on the beach",
+                 "a bowl of fruit on a wooden kitchen table",
+                 "a man riding a horse across a field at sunset")
+CLI_PROMPT = "a red double-decker bus on a wet street at night"
+CLI_SEED = 42
+CLI_SCALE_FACTOR = 0.9      # the .ckpt's scalar scale_factor
 
 # Tolerances, fixed before the first run.
 # Every kernel against its plain version in fp32 on the same (exactly
@@ -266,6 +318,12 @@ TOY_LATENT_ATOL = 1e-3     # ten fp32 UNet calls per stage, CPU vs card sums
 TOY_IMAGE_ATOL = 1e-3      # fp32 decoder, cuDNN vs CPU conv sum order
 TOY_ENCODE_ATOL = 1e-4     # fp32 encoder latents, CPU vs card sums
 ROUND_TRIP_ATOL = 1e-5     # one decode of one quantized latent, twice
+# the full-width CLIP towers, fp32, card (TF32 off) against the CPU: sums
+# in another order through 12 (text) and 24 (vision) pre-LN layers; the
+# text states and the ViT's projection are of order 1, the pooled
+# embedding is unit-normalised
+CLIP_TEXT_ATOL = 1e-4
+CLIP_VISION_ATOL = 2e-4
 
 # Training: the configs' batches (t2i data.params.batch_size 32, the
 # MS-VQGAN's 6) and learning rates, scaled as main.py and
@@ -922,6 +980,22 @@ def layout2i_sites_phase(model):
     return check_sites(found, "layout2i sampling")
 
 
+def clip_sites_phase(found):
+    """Every kernel site of the clip-t2i sampling path: ``found``, each
+    distinct kernel call of one all-kernel run of the sampling CLI (CLIP
+    conditioning, every UNet call at the batched CFG's batch, decode),
+    among them the cross-attention over one key, and that cross-attention
+    at the unguided batch; each against its plain version unless checked
+    before."""
+    for name, site in CLIP_NAMED_SITES:
+        if site not in found[name]:
+            raise AssertionError(f"the clip-t2i CLI made no {name} call at "
+                                 f"{site}: {sorted(found[name], key=str)}")
+    for name, site in CLIP_UNGUIDED_SITES:
+        found[name].add(site)
+    return check_sites(found, "clip-t2i sampling")
+
+
 def unet_conv_sites(model):
     """Every 3x3 conv of one all-kernel UNet call (stage 1, batch 4), as
     the model makes them: {(shape, cout, fused, spade): count}."""
@@ -1266,16 +1340,17 @@ def drive_main_path(model, path, seed, steps):
     return img, z, dict(cond=t_cond, sample=t_sample, decode=t_decode)
 
 
-def unet_calls(model, sampler, steps):
-    """UNet calls of one chain under CFG sequential (two a evaluation):
-    per stage PLMS makes S + 1 evaluations (step 0 takes two), DDIM and
-    DPM-Solver++ S, the vanilla chain one per timestep of the schedule."""
+def unet_calls(model, sampler, steps, cfg_batched=False):
+    """UNet calls of one chain under CFG, sequential (two an evaluation) or
+    batched (one of twice the batch): per stage PLMS makes S + 1
+    evaluations (step 0 takes two), DDIM and DPM-Solver++ S, the vanilla
+    chain one per timestep of the schedule."""
     if sampler == "vanilla":
         per_stage = model.schedule.num_timesteps
     else:
         per_stage = DDIMSchedule.create(model.schedule, steps).num_steps
         per_stage += sampler == "plms"
-    return model.num_stage * per_stage * 2
+    return model.num_stage * per_stage * (1 if cfg_batched else 2)
 
 
 def unet_tokens(model):
@@ -1351,8 +1426,10 @@ def architecture(model, path, steps):
         upsamples=sum(isinstance(m, UNetUpsample) and m.conv is not None
                       for m in unet.modules()),
         bert_layers=count(model.cond_stage_model, XAttention),
-        unet_attn_tokens=unet_tokens(model), ctx_len=path["ctx_len"],
-        unet_calls=unet_calls(model, path["sampler"], steps),
+        unet_attn_tokens=unet_tokens(model),
+        ctx_len=path.get("context_len", path["ctx_len"]),
+        unet_calls=unet_calls(model, path["sampler"], steps,
+                              path.get("cfg_batched", False)),
         table_stages=model.num_stage - 1)
 
 
@@ -2122,6 +2199,235 @@ def lpips_phase(card):
         f"plain path {errs[1]:.3e} (tol {LPIPS_ATOL}); {n} conv launches")
 
 
+@contextlib.contextmanager
+def clip_vocab():
+    """``FRIDO_TPU_CLIP_VOCAB`` pointed, for the block, at vocab.json and
+    merges.txt written from the port's fallback BPE vocabulary (no real
+    CLIP vocabulary is in the repository); yields the directory."""
+    from frido_tpu_torch.text.clip_bpe import fallback_vocab, write_vocab_files
+
+    saved = os.environ.get("FRIDO_TPU_CLIP_VOCAB")
+    with tempfile.TemporaryDirectory() as d:
+        write_vocab_files(d, *fallback_vocab())
+        os.environ["FRIDO_TPU_CLIP_VOCAB"] = d
+        try:
+            yield d
+        finally:
+            if saved is None:
+                os.environ.pop("FRIDO_TPU_CLIP_VOCAB", None)
+            else:
+                os.environ["FRIDO_TPU_CLIP_VOCAB"] = saved
+
+
+def clip_towers_phase(card):
+    """The full-width CLIP towers with seeded weights, card against CPU in
+    fp32: the ViT-L/14 text tower (FrozenCLIPTextEmbedder, and its
+    per-token states) on the CLIP tokenizer's [4, 77] ids of four
+    captions, and the ViT-L/14 image tower (FrozenClipImageEmbedder) with
+    ``clip_preprocess`` (bicubic 256 -> 224) on four seeded 256^2 images;
+    device ms of each on the card."""
+    from frido_tpu_torch.nn.encoders import (FrozenCLIPTextEmbedder,
+                                             FrozenClipImageEmbedder)
+
+    def pair(cls, seed):
+        cpu = cls(device="cpu")
+        init_module_(cpu, torch.Generator().manual_seed(seed))
+        gpu = cls(device="cuda")
+        gpu.load_state_dict(cpu.state_dict(), strict=True)
+        return cpu, gpu
+
+    text_cpu, text_gpu = pair(FrozenCLIPTextEmbedder, 23)
+    tokens = torch.from_numpy(text_cpu.tokenize(list(CLIP_CAPTIONS))).long()
+    if tuple(tokens.shape) != (BATCH, CTX_LEN):
+        raise AssertionError(f"CLIP tokens {tuple(tokens.shape)}")
+    img_cpu, img_gpu = pair(FrozenClipImageEmbedder, 24)
+    images = seeded_images(25, device="cpu")
+    with torch.no_grad():
+        want = [text_cpu(tokens), text_cpu.transformer.text_model(tokens),
+                img_cpu(images)]
+        tg, ig = tokens.cuda(), images.cuda()
+        got = [text_gpu(tg), text_gpu.transformer.text_model(tg),
+               img_gpu(ig)]
+        text_ms = cuda_ms(lambda: text_gpu(tg), reps=5)
+        image_ms = cuda_ms(lambda: img_gpu(ig), reps=5)
+    shapes = [(BATCH, 1, 768), (BATCH, CTX_LEN, 768), (BATCH, 768)]
+    errs = []
+    for name, g, w, shape, tol in zip(
+            ("pooled text", "text states", "image"), got, want, shapes,
+            (CLIP_TEXT_ATOL, CLIP_TEXT_ATOL, CLIP_VISION_ATOL)):
+        err = (g.cpu() - w).abs().max().item()
+        if tuple(g.shape) != shape or not (bool(torch.isfinite(g).all())
+                                           and err <= tol):
+            raise AssertionError(f"CLIP {name} {tuple(g.shape)} card vs "
+                                 f"CPU {err} > {tol}")
+        errs.append(err)
+    norms = got[0][:, 0].norm(dim=-1)
+    log(f"CLIP towers (seeded weights) on {card}: text [4, 77] ids of the "
+        f"CLIP tokenizer (EOT at {tokens.argmax(1).tolist()}): pooled "
+        f"max_abs_err {errs[0]:.3e}, states {errs[1]:.3e} (tol "
+        f"{CLIP_TEXT_ATOL}), norms {[round(v, 6) for v in norms.tolist()]},"
+        f" {text_ms:.3f} ms; image tower on 4 x 256^2 (bicubic to 224): "
+        f"max_abs_err {errs[2]:.3e} (tol {CLIP_VISION_ATOL}), "
+        f"{image_ms:.3f} ms")
+    del text_gpu, img_gpu
+    torch.cuda.empty_cache()
+
+
+def write_lightning_ckpt(path, model, seed):
+    """A Lightning-format checkpoint of ``model`` (the seeded full-width
+    clip-t2i model): ``state_dict`` with its tensors, the EMA's flat
+    ``model_ema.*`` names for every denoiser parameter at values 1% (of
+    the tensor's RMS) of seeded noise away from the weights, a scalar
+    ``scale_factor``, and pickled ``hyper_parameters`` (a Namespace, which
+    ``torch.load``'s weights_only refuses, as Lightning's AttributeDict).
+    Returns {name: EMA tensor on the card}."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    ema = {}
+    with torch.no_grad():
+        for name, p in model.model.named_parameters():
+            noise = torch.randn(p.shape, generator=gen, device="cuda")
+            ema[name] = p + 0.01 * rms(p) * noise
+            flat = ("model." + name).replace(".", "")[len("model"):]
+            sd["model_ema." + flat] = ema[name].cpu()
+    sd["model_ema.num_updates"] = torch.tensor(1000, dtype=torch.int32)
+    sd["scale_factor"] = torch.tensor(CLI_SCALE_FACTOR)
+    params = load_yaml(str(CLIP_T2I))["model"]["params"]
+    torch.save({"state_dict": sd, "epoch": 10, "global_step": 100000,
+                "hyper_parameters": argparse.Namespace(**params)}, path)
+    return ema
+
+
+def direct_images(model, steps):
+    """The CLI's pipeline called directly: the prompt's and the empty
+    caption's CLIP contexts, PLMS with CFG, the bf16 UNet and the decode,
+    with a generator seeded as the CLI seeds it."""
+    gen = torch.Generator(device="cuda").manual_seed(CLI_SEED)
+    with torch.no_grad():
+        ctx = model.get_learned_conditioning(
+            model.tokenize([CLI_PROMPT] * BATCH))
+        uctx = model.get_learned_conditioning(model.tokenize([""] * BATCH))
+        z = model.sample(BATCH, context=ctx, uncond_context=uctx,
+                         steps=steps, eta=0.0, guidance_scale=GUIDANCE,
+                         sampler="plms", compute_dtype=torch.bfloat16,
+                         generator=gen)
+        return model.decode_first_stage(z).float().cpu().numpy()
+
+
+def sampling_cli_phase(card, model):
+    """The clip-t2i path through the sampling CLI, in process: a Lightning
+    ``.ckpt`` written from ``model``'s seeded weights with a distinct EMA;
+    ``-r that.ckpt --prompt ... -plms -G -gs 1.5 -bs 4`` at 20 steps in
+    the default configuration and at 10 all-kernel, under the CLI's
+    strict-vocab default with the fallback BPE files as the vocabulary;
+    then ``--no_ema`` all-kernel. Each run: launches held to the
+    architecture's (counts set to 0 just before ``main``, read just after),
+    the PNGs read back equal ``to_uint8`` of the returned images, the
+    images finite and not constant; with the EMA, the model's denoiser is
+    the checkpoint's EMA, the scalar scale factor became [0.9], and a
+    direct ``sample`` + ``decode`` with the CLI's generator gives the same
+    images, bit for bit; ``--no_ema`` gives other images. Returns the
+    kernel sites of the ``--no_ema`` run (``record_sites``), whose shapes
+    are the all-kernel EMA run's."""
+    from frido_tpu_torch.cli import sample_diffusion as cli
+    from frido_tpu_torch.utils.visualize import read_png, to_uint8
+
+    path = PATHS["clip-t2i"]
+    saved_strict = os.environ.pop("FRIDO_TPU_STRICT_VOCAB", None)
+    with clip_vocab(), tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "model.ckpt")
+        ema, write_s = timed(lambda: write_lightning_ckpt(ckpt, model, 26))
+        gib = os.path.getsize(ckpt) / 2 ** 30
+        log(f"sampling CLI: wrote {ckpt} ({gib:.2f} GiB, "
+            f"{len(ema)} EMA tensors) in {write_s:.2f} s")
+        runs, found = {}, None
+        for label, extra in (("default", []), ("all-kernel", []),
+                             ("all-kernel", ["--no_ema"])):
+            all_kernel = label == "all-kernel"
+            steps = path["all_kernel_steps" if all_kernel else "steps"]
+            name = f"clip-t2i CLI, {label}{' '.join([''] + extra)}"
+            argv = ["-cfg", str(CLIP_T2I), "-r", ckpt, "--prompt",
+                    CLI_PROMPT, "-plms", "-c", str(steps), "-G", "-gs",
+                    str(GUIDANCE), "-bs", str(BATCH), "--seed",
+                    str(CLI_SEED), "-o", os.path.join(tmp, "out"), "-name",
+                    f"{label}{''.join(extra)}", *extra]
+            out = []
+
+            def run():
+                out.append(cli.main(argv))
+
+            with (all_kernels() if all_kernel else contextlib.nullcontext()):
+                zero_launches()
+                if "--no_ema" in extra:
+                    found = record_sites(run)
+                else:
+                    run()
+                torch.cuda.synchronize()
+                res = out[0]
+                launches = read_launches()
+                m = res["model"]
+                arch = architecture(m, path, steps)
+                # routed by the switches in force, as the run was
+                held = expected_launches(arch, all_kernel)
+            if {k: arch[k] for k in path["arch"]} != path["arch"]:
+                raise AssertionError(f"the clip-t2i model has {arch}")
+            if launches != held:
+                raise AssertionError(f"{name} launches {launches}, expected "
+                                     f"{held}")
+            if os.environ.get("FRIDO_TPU_STRICT_VOCAB") != "1":
+                raise AssertionError("the CLI did not turn strict vocab on")
+            imgs = res["images"]
+            spread = check_images(torch.from_numpy(imgs), name)
+            pngs = sorted(os.listdir(os.path.join(res["out_dir"], "sample")))
+            if len(pngs) != BATCH:
+                raise AssertionError(f"{name}: PNGs {pngs}")
+            for i, png in enumerate(pngs):
+                back = read_png(os.path.join(res["out_dir"], "sample", png))
+                if not np.array_equal(back, to_uint8(imgs[i])):
+                    raise AssertionError(f"{name}: {png} is not the image")
+            direct_err = None
+            if "--no_ema" not in extra:
+                params = dict(m.model.named_parameters())
+                if not all(torch.equal(params[k], v) for k, v in ema.items()):
+                    raise AssertionError(f"{name}: the EMA is not swapped in")
+                if not np.array_equal(m.scale_factors,
+                                      np.float32([CLI_SCALE_FACTOR])):
+                    raise AssertionError(f"{name}: scale factors "
+                                         f"{m.scale_factors}")
+                with (all_kernels() if all_kernel
+                      else contextlib.nullcontext()):
+                    direct = direct_images(m, steps)
+                direct_err = float(np.abs(direct - imgs).max())
+                if direct_err != 0.0:
+                    raise AssertionError(f"{name}: the CLI's images differ "
+                                         f"from direct sampling by "
+                                         f"{direct_err}")
+            runs[(label, tuple(extra))] = imgs
+            log(f"{name} on {card}: batch {BATCH}, PLMS {steps} steps x 2 "
+                f"stages, CFG {GUIDANCE} batched, bf16 UNet: checkpoint "
+                f"load {res['load_seconds']:.2f} s, sampling (tokens to "
+                f"images) {res['sample_seconds']:.3f} s, "
+                f"{BATCH / res['sample_seconds']:.4f} img/s; launches "
+                f"{launches} (the architecture's); image std {spread:.4f}; "
+                f"PNGs read back equal; direct sampling max_abs_diff "
+                f"{direct_err}"
+                f"{'; kernel sites recorded' if found is not None else ''}")
+            del m, res, out
+            torch.cuda.empty_cache()
+    if saved_strict is None:
+        os.environ.pop("FRIDO_TPU_STRICT_VOCAB", None)
+    else:
+        os.environ["FRIDO_TPU_STRICT_VOCAB"] = saved_strict
+    gap = float(np.abs(runs[("all-kernel", ("--no_ema",))]
+                       - runs[("all-kernel", ())]).max())
+    if not gap > 1e-2:
+        raise AssertionError(f"--no_ema gave the EMA's images (max diff "
+                             f"{gap})")
+    log(f"sampling CLI: --no_ema images differ from the EMA's by up to "
+        f"{gap:.4f}")
+    return found
+
+
 def build_msvqgan():
     t0 = time.perf_counter()
     model = instantiate_from_config(load_yaml(str(MSVQ))["model"], seed=0)
@@ -2305,6 +2611,18 @@ def main():
     with all_kernels():
         first_stage_phase(card, model, "layout2i", "all-kernel")
     mark("layout2i first stage")
+    del model
+    torch.cuda.empty_cache()
+    with clip_vocab():
+        clip_towers_phase(card)
+    mark("CLIP towers")
+    model = build_main_model(CLIP_T2I)
+    found = sampling_cli_phase(card, model)
+    mark("sampling CLI")
+    del model
+    torch.cuda.empty_cache()
+    other += clip_sites_phase(found)
+    mark("clip-t2i sites")
     for row in rows:
         path = default if row["name"] in ("flash_attention", "vq_argmin") \
             else opt_in

@@ -2,15 +2,17 @@
 
 YAML configs written against the original torch code name targets such as
 ``frido.models.diffusion.frido.FridoDiffusion``; the alias table maps the
-ones the port builds onto port classes (the models, the VQ-GAN loss and
-the LR schedulers), so the diffusion configs under ``configs/frido/`` and
-``configs/msvqgan/msvqgan_f16f8_coco.yaml`` read unmodified.
+ones the port builds onto port classes (the models, the conditioning
+encoders, the VQ-GAN loss and the LR schedulers), so the diffusion configs
+under ``configs/frido/`` and ``configs/msvqgan/msvqgan_f16f8_coco.yaml``
+read unmodified. :func:`load_configs` merges YAML files left to right and
+applies ``a.b.c=value`` dot-list overrides on top, as the CLIs take them.
 """
 
 from __future__ import annotations
 
 import importlib
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
 
 import yaml
 
@@ -33,6 +35,20 @@ _TARGET_ALIASES: Dict[str, str] = {
         "frido_tpu_torch.models.autoencoder.IdentityFirstStage",
     "frido.modules.encoders.modules.BERTEmbedder":
         "frido_tpu_torch.nn.encoders.BERTEmbedder",
+    "frido.modules.encoders.modules.ClassEmbedder":
+        "frido_tpu_torch.nn.encoders.ClassEmbedder",
+    "frido.modules.encoders.modules.TransformerEmbedder":
+        "frido_tpu_torch.nn.encoders.TransformerEmbedder",
+    "frido.modules.encoders.modules.SpatialRescaler":
+        "frido_tpu_torch.nn.encoders.SpatialRescaler",
+    "frido.modules.encoders.modules.BERTEmbedderVQTInterface":
+        "frido_tpu_torch.nn.encoders.BERTEmbedderVQTInterface",
+    "frido.modules.encoders.modules.FrozenCLIPEmbedder":
+        "frido_tpu_torch.nn.encoders.FrozenCLIPEmbedder",
+    "frido.modules.encoders.modules.FrozenCLIPTextEmbedder":
+        "frido_tpu_torch.nn.encoders.FrozenCLIPTextEmbedder",
+    "frido.modules.encoders.modules.FrozenClipImageEmbedder":
+        "frido_tpu_torch.nn.encoders.FrozenClipImageEmbedder",
     "taming.modules.losses.DummyLoss":
         "frido_tpu_torch.models.msvqgan.DummyLoss",
     "taming.modules.losses.vqperceptual.DummyLoss":
@@ -73,3 +89,47 @@ def instantiate_from_config(config: Any, **extra_kwargs) -> Any:
 def load_yaml(path: str) -> Dict[str, Any]:
     with open(path) as f:
         return yaml.safe_load(f) or {}
+
+
+def merge_dicts(base: Dict[str, Any], override: Dict[str, Any]
+                ) -> Dict[str, Any]:
+    """Deep merge: values in ``override`` win; dicts merge recursively."""
+    out = dict(base)
+    for k, v in override.items():
+        if k in out and isinstance(out[k], dict) and isinstance(v, dict):
+            out[k] = merge_dicts(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+def apply_dotlist(config: Dict[str, Any], dotlist: List[str]
+                  ) -> Dict[str, Any]:
+    """Apply ``a.b.c=value`` overrides (the OmegaConf dot-list idiom); each
+    value is parsed as YAML. Nodes on the way are copied, not changed."""
+    out = dict(config)
+    for item in dotlist:
+        if "=" not in item:
+            raise ValueError(f"dotlist entry '{item}' is not of form "
+                             f"key=value")
+        key, _, raw = item.partition("=")
+        parts = key.strip().split(".")
+        node = out
+        for p in parts[:-1]:
+            nxt = node.get(p)
+            nxt = dict(nxt) if isinstance(nxt, dict) else {}
+            node[p] = nxt
+            node = nxt
+        node[parts[-1]] = yaml.safe_load(raw)
+    return out
+
+
+def load_configs(paths: List[str], dotlist: Optional[List[str]] = None
+                 ) -> Dict[str, Any]:
+    """Left-to-right merge of YAML files, then dot-list overrides."""
+    cfg: Dict[str, Any] = {}
+    for p in paths:
+        cfg = merge_dicts(cfg, load_yaml(p))
+    if dotlist:
+        cfg = apply_dotlist(cfg, dotlist)
+    return cfg

@@ -16,7 +16,13 @@ embedding       Embed ``weight``              as-is
 bias            ``bias``                      as-is
 logvar          FridoDiffusion ``logvar``     as-is (``learn_logvar``)
 loc, scale_v    ActNorm ``loc``, ``scale``    as-is
+class_embedding CLIP ``class_embedding``      as-is
 ==============  ============================  ==========================
+
+A leaf may carry nesting of its own, as the CLIP vision tower's direct
+parameter ``embeddings__class_embedding``: only its last segment is the
+leaf name, the others are modules
+(``frido_tpu/io/torch_import.py:48-52``).
 
 ``kernel_t`` is the JAX ``ConvTranspose2d``'s input-dilated conv kernel,
 ``kernel_t[h, w, ci, co] = W_torch[ci, co, k-1-h, k-1-w]``: a plain
@@ -42,7 +48,8 @@ import torch
 
 LEAF_TO_TORCH = {"kernel": "weight", "kernel_t": "weight", "scale": "weight",
                  "bias": "bias", "embedding": "weight", "logvar": "logvar",
-                 "loc": "loc", "scale_v": "scale"}
+                 "loc": "loc", "scale_v": "scale",
+                 "class_embedding": "class_embedding"}
 COLLECTIONS = ("params", "ema", "batch_stats")
 
 
@@ -53,9 +60,16 @@ def torch_key(path: Tuple[str, ...], collection: str = "params") -> str:
     parts = []
     for comp in path[:-1]:
         parts.extend(comp.split("__"))
-    leaf = path[-1]
+    *mods, leaf = path[-1].split("__")
+    parts.extend(mods)
     parts.append(leaf if collection != "params" else LEAF_TO_TORCH[leaf])
     return ".".join(parts)
+
+
+def leaf_name(path: Tuple[str, ...]) -> str:
+    """The leaf name of a flax path: the last ``__`` segment of its last
+    component."""
+    return path[-1].split("__")[-1]
 
 
 def to_torch_layout(value: np.ndarray, leaf: str) -> np.ndarray:
@@ -95,13 +109,14 @@ def jax_params_to_state_dict(variables: Mapping[str, Any]
     state = {}
     for collection, tree in trees:
         for path, value in _leaves(tree):
-            if collection == "params" and path[-1] not in LEAF_TO_TORCH:
+            if collection == "params" and leaf_name(path) not in \
+                    LEAF_TO_TORCH:
                 raise KeyError(f"no port mapping for flax leaf "
                                f"{'/'.join(path)}")
             key = torch_key(path, collection)
             if key in state:
                 raise KeyError(f"two JAX leaves map onto {key}")
-            state[key] = to_torch_layout(value, path[-1])
+            state[key] = to_torch_layout(value, leaf_name(path))
     return state
 
 

@@ -26,8 +26,13 @@ over the stages, ``init_scale_by_std`` sets each stage's scale factor to
 1/std of one batch's latents. The first stage is frozen: it stays in eval
 mode whatever ``train()`` is told, and encodes without a gradient. The
 per-timestep ``logvar`` is a buffer, or a parameter with ``learn_logvar``.
-``training/trainer.py`` runs the step. Not ported yet: pixel-space DDPM,
-checkpoint loading and the image-log galleries.
+``training/trainer.py`` runs the step.
+
+Checkpoints: ``tokenize`` runs the cond stage's host tokenizer;
+``load_torch_checkpoint`` loads a reference Lightning ``.ckpt`` in place
+(``ignore_keys`` dropped first, the scalar ``scale_factor`` made a vector
+under ``adopted_scale_factor``), as ``models/frido.py:344-362`` of the JAX
+package. Not ported yet: pixel-space DDPM and the image-log galleries.
 """
 
 from __future__ import annotations
@@ -75,6 +80,7 @@ _FRIDO_DEFAULTS: Dict[str, Any] = dict(
     use_ema=True,
     learn_logvar=False,
     logvar_init=0.0,
+    ignore_keys=(),
 )
 
 
@@ -197,7 +203,11 @@ class FridoDiffusion(nn.Module):
         parts, start = [], 0
         for i, d in enumerate(self.embed_dim_list):
             if start + d <= z.shape[-1]:
-                f = float(np.float32(1.0) / sf[i]) if invert else float(sf[i])
+                # JAX clamps an index past the end: a 1-vector (a scalar
+                # checkpoint factor under adopted_scale_factor) scales
+                # every stage
+                s = sf[min(i, sf.shape[0] - 1)]
+                f = float(np.float32(1.0) / s) if invert else float(s)
                 parts.append(z[..., start:start + d] * f)
                 start += d
         if start < z.shape[-1]:
@@ -205,13 +215,49 @@ class FridoDiffusion(nn.Module):
         return torch.cat(parts, dim=-1)
 
     def get_learned_conditioning(self, tokens) -> torch.Tensor:
-        """int token ids [B, T] -> per-token context [B, T, n_embed]. Under
-        autograd, as the cond stage trains with the denoiser."""
+        """The cond stage's output for what ``tokenize`` gives: int token
+        ids [B, T] (as int64), or float inputs such as the CLIP image
+        embedder's images (as fp32). Under autograd, as the cond stage
+        trains with the denoiser."""
         if self.cond_stage_model is None:
             raise ValueError("unconditional model has no cond stage")
         tokens = torch.as_tensor(np.asarray(tokens) if not isinstance(
-            tokens, torch.Tensor) else tokens).to(self.device, torch.long)
-        return self.cond_stage_model(tokens)
+            tokens, torch.Tensor) else tokens)
+        dtype = torch.float32 if tokens.is_floating_point() else torch.long
+        return self.cond_stage_model(tokens.to(self.device, dtype))
+
+    def tokenize(self, cond):
+        """The cond stage's host tokenizer: captions, class ids, token ids
+        or images -> the array ``get_learned_conditioning`` takes."""
+        if self.cond_stage_model is None:
+            raise ValueError("unconditional model has no cond stage")
+        return self.cond_stage_model.tokenize(cond)
+
+    def load_torch_checkpoint(self, path: str, strict: bool = False
+                              ) -> Dict[str, Any]:
+        """Load a reference Lightning ``.ckpt`` into this model in place:
+        keys under ``ignore_keys`` prefixes are dropped; a ``scale_factor``
+        sets the latent scale factors (a scalar becomes a 1-vector under
+        ``adopted_scale_factor``); every tensor of the model is filled from
+        its key (``io/torch_import.load_state_dict``; a missing key keeps
+        the tensor's value unless ``strict``). Returns the report: ``used``
+        and ``missing`` keys, and the checkpoint itself under
+        ``state_dict`` (the caller may want its ``model_ema.*``)."""
+        from frido_tpu_torch.io.torch_import import (load_state_dict,
+                                                     load_torch_checkpoint)
+
+        sd = load_torch_checkpoint(path)
+        for ik in self.ignore_keys:
+            sd = {k: v for k, v in sd.items() if not k.startswith(ik)}
+        if "scale_factor" in sd:
+            sf = sd["scale_factor"].float().numpy()
+            if sf.ndim == 0 and self.adopted_scale_factor:
+                sf = sf[None]
+            self.scale_factors = sf
+        report: Dict[str, Any] = {}
+        load_state_dict(self, sd, strict=strict, report=report)
+        report["state_dict"] = sd
+        return report
 
     def _tiling(self, side: int) -> Optional[Dict[str, Any]]:
         """``split_input_params`` when a latent of this side is tiled."""

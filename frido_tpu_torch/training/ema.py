@@ -7,12 +7,16 @@ parameters with the decay ramp ``min(decay, (1 + n) / (10 + n))``:
 ``s <- s - (1 - d) (s - p)``. ``scope()`` swaps the shadow into the module
 for the block and restores the trained weights after it: the JAX package's
 ``ema_full_params``.
+
+:func:`import_ema` reads the reference ``LitEma``'s flat buffer names out
+of a Lightning checkpoint (``model_ema.`` + the denoiser wrapper's
+parameter name without its dots).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Iterator
+from typing import Any, Dict, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
@@ -59,3 +63,36 @@ class EMA:
         finally:
             with torch.no_grad():
                 torch._foreach_copy_(params, saved)
+
+
+def import_ema(module: nn.Module, state_dict: Mapping[str, Any],
+               prefix: str = "model_ema.", torch_prefix: str = "model.",
+               report: Optional[Dict[str, Any]] = None
+               ) -> Dict[str, torch.Tensor]:
+    """The EMA of ``module`` (the denoiser wrapper ``model.model``) from a
+    checkpoint's ``model_ema.*`` buffers, as a dict of its parameter names
+    -> tensors in their dtype.
+
+    LitEma names the shadow of ``model.diffusion_model.a.0.b.weight``
+    ``model_ema.diffusion_modela0bweight``: the parameter's full name
+    (``torch_prefix`` + its name in ``module``) without dots, less the
+    leading ``model``. A parameter without its flat name keeps its current
+    value. ``report`` gets ``used`` and ``missing``, as
+    ``io.torch_import.load_state_dict``'s."""
+    from frido_tpu_torch.io.torch_import import _fit, _to_tensor
+
+    used, missing, out = set(), [], {}
+    for name, p in module.named_parameters():
+        torch_key = torch_prefix + name
+        flat = prefix + torch_key.replace(".", "")[len("model"):]
+        if flat in state_dict:
+            used.add(flat)
+            out[name] = _fit(_to_tensor(state_dict[flat]), p, torch_key).to(
+                p.dtype)
+        else:
+            missing.append(flat)
+            out[name] = p.detach().clone()
+    if report is not None:
+        report["used"] = used
+        report["missing"] = missing
+    return out

@@ -81,10 +81,12 @@ class DiffusionTrainer:
     @torch.no_grad()
     def load_state(self, state: Dict[str, object]) -> None:
         """Continue from a state carried across by
-        ``io/jax_weights.jax_train_state_to_port``: weights, EMA and its
-        counter, the optimizer's moments and counts, the step."""
+        ``io/jax_weights.jax_train_state_to_port`` (numpy arrays) or saved
+        by ``io/checkpoint.save_train_state`` (tensors): weights, EMA and
+        its counter, the optimizer's moments and counts, the step."""
         def tensors(sd):
-            return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+            return {k: v if isinstance(v, torch.Tensor)
+                    else torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
         self.model.load_state_dict(tensors(state["params"]), strict=True)
         ema = tensors(state["ema"])

@@ -260,6 +260,12 @@ def test_group_norm_kernel_constant_group_gives_bias(cuda):
     (4, 64, 77, 576),
     (4, 16, 16, 960),     # the 4x4 site: d = 960
     (4, 16, 77, 960),
+    (4, 256, 1, 384),     # clip-t2i: cross-attention over the one pooled
+    (4, 64, 1, 576),      # CLIP token, at each resolution, unguided
+    (4, 16, 1, 960),
+    (8, 256, 1, 384),     # and at the batched CFG's batch of 8
+    (8, 64, 1, 576),
+    (8, 16, 1, 960),
     (32, 77, 77, 64),     # BERT: 8 heads x batch 4
     (4, 256, 256, 512),   # t2i encoder's head-1 mid at 16^2
     (3, 100, 512, 50),    # ragged q, the most keys, d % 4 != 0

@@ -1,9 +1,10 @@
 """Import and device hygiene of the port, and full-width weight-bridge
 coverage of the t2i configuration.
 
-- No file of ``frido_tpu_torch/`` (the training and loss modules
-  included) and not ``chip_smoke.py`` imports jax, flax, optax or the JAX
-  package.
+- No file of ``frido_tpu_torch/`` (the training, loss, text, CLI and
+  checkpoint modules included) and not ``chip_smoke.py`` imports jax,
+  flax, optax or the JAX package, nor ``regex`` or PIL, which the card's
+  machine does not have.
 - Entry points run on the card unless told otherwise: without CUDA,
   building the model without ``device="cpu"`` raises.
 - On CPU tensors the kernel wrappers take their plain versions and never
@@ -36,7 +37,7 @@ torch.set_num_threads(2)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 T2I = REPO / "configs" / "frido" / "t2i" / "frido_f16f8_coco.yaml"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "frido_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "frido_tpu", "regex", "PIL"}
 
 
 def _imported_roots(path):
@@ -59,6 +60,10 @@ def test_port_imports_no_jax():
                                          "vqgan_trainer")} <= names
     assert {f"losses/{m}.py" for m in ("discriminator", "lpips",
                                        "vqperceptual")} <= names
+    assert {"text/wordpiece.py", "text/clip_bpe.py", "text/vendor.py",
+            "text/__init__.py", "nn/clip.py", "nn/encoders.py",
+            "io/checkpoint.py", "io/torch_import.py", "utils/visualize.py",
+            "utils/profiling.py", "cli/sample_diffusion.py"} <= names
     bad = {str(f.relative_to(REPO)): sorted(set(_imported_roots(f))
                                            & FORBIDDEN)
            for f in files}
