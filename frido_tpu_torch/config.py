@@ -3,10 +3,13 @@
 YAML configs written against the original torch code name targets such as
 ``frido.models.diffusion.frido.FridoDiffusion``; the alias table maps the
 ones the port builds onto port classes (the models, the conditioning
-encoders, the VQ-GAN loss and the LR schedulers), so the diffusion configs
-under ``configs/frido/`` and ``configs/msvqgan/msvqgan_f16f8_coco.yaml``
-read unmodified. :func:`load_configs` merges YAML files left to right and
-applies ``a.b.c=value`` dot-list overrides on top, as the CLIs take them.
+encoders, the VQ-GAN loss, the LR schedulers, the COCO dataset and the
+data module), so the diffusion configs under ``configs/frido/`` and
+``configs/msvqgan/msvqgan_f16f8_coco.yaml`` read unmodified. The Visual
+Genome and OpenImages datasets are not ported: their targets resolve to
+:func:`not_ported`, which raises. :func:`load_configs` merges YAML files
+left to right and applies ``a.b.c=value`` dot-list overrides on top, as
+the CLIs take them.
 """
 
 from __future__ import annotations
@@ -61,7 +64,26 @@ _TARGET_ALIASES: Dict[str, str] = {
         "frido_tpu_torch.training.optim.LambdaLinearScheduler",
     "frido.lr_scheduler.LambdaWarmUpCosineScheduler":
         "frido_tpu_torch.training.optim.LambdaWarmUpCosineScheduler",
+    "taming.data.annotated_objects_coco.AnnotatedObjectsCoco":
+        "frido_tpu_torch.data.coco.AnnotatedObjectsCoco",
+    "main.DataModuleFromConfig":
+        "frido_tpu_torch.data.datamodule.DataModuleFromConfig",
+    "scripts.sample_diffusion.DataModuleFromConfig":
+        "frido_tpu_torch.data.datamodule.DataModuleFromConfig",
+    "taming.data.annotated_objects_vg.AnnotatedObjectsVg":
+        "frido_tpu_torch.config.not_ported",
+    "taming.data.annotated_objects_vg_cocostyle.AnnotatedObjectsVg":
+        "frido_tpu_torch.config.not_ported",
+    "taming.data.annotated_objects_open_images.AnnotatedObjectsOpenImages":
+        "frido_tpu_torch.config.not_ported",
 }
+
+
+def not_ported(**params: Any) -> Any:
+    """The Visual Genome, VG-cocostyle and OpenImages datasets."""
+    raise NotImplementedError(
+        "the Visual Genome and OpenImages datasets are not ported yet "
+        "(ROADMAP.md section 1, item 9); the port reads COCO")
 
 
 def resolve_target(target: str) -> Any:

@@ -55,6 +55,8 @@ from frido_tpu_torch.schedules import DiffusionSchedule
 
 _FRIDO_DEFAULTS: Dict[str, Any] = dict(
     timesteps=1000,
+    first_stage_key="image",
+    cond_stage_key="caption",
     beta_schedule="linear",
     image_size=32,
     channels=8,

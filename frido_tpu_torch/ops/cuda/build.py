@@ -8,9 +8,13 @@ source is rebuilt and an unchanged one is reused. Nothing is built when a
 module is imported: the first CUDA launch of a kernel builds it, and
 :func:`build` builds several at once, one ``nvcc`` process each, all
 started together. A source may include the shared headers of ``csrc/``
-(``*.cuh``); they are part of every library's hash. A launch goes to the
-runtime's current device, on the stream :func:`raw_stream` gives, inside
-:func:`device_context`.
+(``*.cuh``); they are part of every library's hash. A source that calls a
+toolkit library is linked with it (:data:`LINK`: ``jpeg_decode`` with
+nvJPEG, from the toolkit's ``lib64``, which is also the library's run
+path). Builds and loads are serialised within a process: the data
+loader's threads may all reach the first JPEG decode at once. A launch
+goes to the runtime's current device, on the stream :func:`raw_stream`
+gives, inside :func:`device_context`.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 from typing import Dict, Iterable
 
 import torch
@@ -29,16 +34,31 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("flash_attention", "vq_argmin", "group_norm", "smalls_attention",
-           "conv3x3")
+           "conv3x3", "jpeg_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# toolkit libraries a source links with
+LINK = {"jpeg_decode": ("-lnvjpeg",)}
+
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.RLock()
+
+
+def _cuda_home() -> pathlib.Path:
+    return pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+
+
+def _link_flags(name: str) -> tuple:
+    libs = LINK.get(name, ())
+    if not libs:
+        return ()
+    lib64 = _cuda_home() / "lib64"
+    return ("-L", str(lib64), "-Xlinker", f"-rpath={lib64}", *libs)
 
 
 def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = pathlib.Path(home) / "bin" / "nvcc"
+    cand = _cuda_home() / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
     found = shutil.which("nvcc")
@@ -52,7 +72,7 @@ def library_path(name: str) -> pathlib.Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + LINK.get(name, ())).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 
@@ -63,6 +83,11 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     (registers, shared memory and spills per kernel). Raises with the
     compiler's output if any build fails.
     """
+    with _LOCK:
+        return _build(names)
+
+
+def _build(names: Iterable[str]) -> Dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -70,7 +95,8 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+               *_link_flags(name)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -91,9 +117,12 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library for kernel ``name``, built on first use."""
     lib = _LOADED.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LOADED[name] = lib
+        with _LOCK:
+            lib = _LOADED.get(name)
+            if lib is None:
+                build([name])
+                lib = ctypes.CDLL(str(library_path(name)))
+                _LOADED[name] = lib
     return lib
 
 

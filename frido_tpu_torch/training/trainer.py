@@ -14,6 +14,18 @@ JAX package never reads that field either). The first stage gets
 Every random number of a step comes from :func:`_draw`, from the caller's
 ``torch.Generator`` (drawn on the generator's device and moved to the
 model's), so a test can feed it another package's draws.
+
+Data parallelism (``world_size`` > 1, a process group joined by
+``parallel/dist.py``): each rank's batch is its rows of the global batch;
+every rank draws t and the noise of the whole global batch from the same
+generator and keeps its own rows, so the ranks together draw what one
+process would. After the backward, and before AdamW, the trainable
+gradients are averaged over the ranks by explicit bucketed ``all_reduce``
+calls (``dist.all_reduce_mean_``): the step calls
+``model.training_loss``, not a wrapped module's ``forward``, so
+``DistributedDataParallel``'s hooks would never fire. The logs are
+averaged over the ranks too. Every rank then takes the same AdamW update
+and the same EMA update, so weights and EMA stay equal on every rank.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from frido_tpu_torch.parallel import dist
 from frido_tpu_torch.training.ema import EMA
 from frido_tpu_torch.training.optim import AdamW
 
@@ -62,13 +75,17 @@ class DiffusionTrainer:
     shadow after every call, also the calls that only accumulate; ``remat``
     recomputes the diffusion loss's activations in the backward
     (``torch.utils.checkpoint``); ``compute_dtype`` runs the encode and the
-    UNet in that dtype with fp32 weights, optimizer state and loss math.
+    UNet in that dtype with fp32 weights, optimizer state and loss math;
+    ``rank`` of ``world_size`` makes the step data-parallel.
     """
 
     def __init__(self, model: nn.Module, optimizer: AdamW,
                  use_ema: bool = True, remat: bool = False,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 rank: int = 0, world_size: int = 1):
         self.model = model
+        self.rank = rank
+        self.world_size = world_size
         self.optimizer = optimizer
         self.use_ema = use_ema
         self.remat = remat
@@ -123,9 +140,23 @@ class DiffusionTrainer:
         return image, tokens
 
     def _draws(self, batch: int, generator):
+        """This rank's rows of the global batch's t and noise."""
         m = self.model
-        shape = (batch, m.image_size, m.image_size, m.channels)
-        return _draw(generator, batch, m.timesteps, shape, m.device)
+        n = batch * self.world_size
+        shape = (n, m.image_size, m.image_size, m.channels)
+        t, noise = _draw(generator, n, m.timesteps, shape, m.device)
+        if self.world_size == 1:
+            return t, noise
+        rows = dist.rank_rows(n, self.rank, self.world_size)
+        return t[rows], noise[rows]
+
+    def _mean_over_ranks(self, logs: Dict[str, torch.Tensor]):
+        if self.world_size == 1:
+            return logs
+        keys = sorted(logs)
+        flat = torch.stack([logs[k].detach().float() for k in keys])
+        dist.all_reduce_mean_([flat])
+        return dict(zip(keys, flat.unbind()))
 
     def _context(self, tokens):
         if tokens is None:
@@ -153,12 +184,19 @@ class DiffusionTrainer:
         else:
             loss, logs = diffusion_loss(z, ctx, t, noise)
         loss.backward()
+        if self.world_size > 1:
+            params = [p for g in self.optimizer.param_groups
+                      for p in g["params"]]
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            dist.all_reduce_mean_([p.grad for p in params])
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         if self.use_ema:
             self.ema.update()
         self.step += 1
-        return {k: v.detach() for k, v in logs.items()}
+        return self._mean_over_ranks({k: v.detach() for k, v in logs.items()})
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, object],
@@ -173,4 +211,4 @@ class DiffusionTrainer:
         with self.ema.scope() if ema else contextlib.nullcontext():
             z = m.encode_first_stage(image)
             loss, _ = m.training_loss(z, self._context(tokens), t, noise)
-        return loss
+        return self._mean_over_ranks({"loss": loss})["loss"]

@@ -29,6 +29,14 @@ half of that. The absolute parts:
 VQ indices must be equal wherever the best and second-best distances
 differ by more than 1e-5. Each backward is held to the plain version's
 autograd within 1e-4 (fp32, small shapes).
+
+The JPEG decode (nvJPEG, ``csrc/jpeg_decode.cu``, upsampled and converted
+in libjpeg's arithmetic) on each committed fixture against its PIL
+pixels: the coded planes (the grey fixture's, the 4:4:4 fixture's Y, Cb,
+Cr against libjpeg's) within 1 level, the inverse DCT's rounding; RGB
+within 3 levels (a plane error of 1 through the YCbCr conversion's
+1.772), mean within 0.05; the image pipeline on the card against the CPU
+on the same pixels within 1e-5.
 """
 
 import numpy as np
@@ -44,6 +52,9 @@ from frido_tpu_torch.ops.cuda.conv import (conv3x3, conv3x3_norm_silu,
 from frido_tpu_torch.ops.cuda.norm import (group_norm, group_norm_plain,
                                            group_norm_plan)
 from frido_tpu_torch.ops.cuda.vq import vq_argmin, vq_argmin_plain, vq_plan
+from frido_tpu_torch.tools.make_mini_coco import (FIXTURES, SPECS,
+                                                  fixture_pixels,
+                                                  fixture_planes)
 
 BF16_RTOL = 2.0 ** -8
 
@@ -836,3 +847,39 @@ def test_group_norm_kernel_at_the_layout2i_unet_site(cuda, eps, silu):
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     ok, err = _within(got, want, 5e-5, torch.bfloat16)
     assert ok, err
+
+
+@pytest.mark.parametrize("name", [spec[0] for spec in SPECS])
+def test_jpeg_decode_matches_libjpeg(cuda, name):
+    import os
+
+    from frido_tpu_torch.data.image_io import load_rgb
+    from frido_tpu_torch.data.transforms import ImagePipeline
+    from frido_tpu_torch.ops.cuda.jpeg import decode_jpeg, decode_planes
+
+    path = os.path.join(FIXTURES, name)
+    want = torch.from_numpy(fixture_pixels()[name])
+    before = decode_jpeg.launches
+    img = load_rgb(path, cuda)
+    assert decode_jpeg.launches == before + 1
+    assert img.device.type == "cuda" and img.dtype == torch.uint8
+    assert img.shape == want.shape
+    d = (img.cpu().int() - want.int()).abs()
+    assert d.max().item() <= 3 and d.float().mean().item() <= 0.05
+    coded = fixture_planes().get(name)
+    with open(path, "rb") as f:
+        planes = decode_planes(f.read(), cuda, name)
+    if coded is not None:
+        got = torch.stack(planes, -1).cpu().int()
+        assert (got - torch.from_numpy(coded).int()).abs().max() <= 1
+    if len(planes) == 1:
+        assert d.max().item() <= 1
+    h, w = want.shape[:2]
+    for method, flip in (("center", False), ("random-1d", True),
+                         ("random-2d", True)):
+        cpu = ImagePipeline(256, method, flip, seed=3)
+        gpu = ImagePipeline(256, method, flip, seed=3)
+        _, _, ref = cpu(want)
+        _, _, out = gpu(want.to(cuda))
+        assert out.device.type == "cuda"
+        assert (out.cpu() - ref).abs().max().item() <= 1e-5

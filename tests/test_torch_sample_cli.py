@@ -13,12 +13,20 @@ the same generator (exactly: the same operations on the same CPU);
 ``--no_ema`` gives other images; ``--get_codebook`` writes the codes npz;
 a run directory of the port's own checkpoints samples its EMA, a
 params-only directory its weights; strict mode refuses the fallback
-vocab; without ``--prompt`` the CLI raises, and with it ``-n`` and
-``-ngpu`` are refused.
+vocab; with ``--prompt``, ``-n`` and ``-ngpu`` are refused.
+Without ``--prompt`` the CLI samples the config's test split, here a
+mini-COCO-2014 tree over the committed JPEG fixtures: the ``-ngpu 2``
+shards are disjoint, cover the split and are the JAX data module's; the
+captions tokenize as in the JAX package; the ``*-samples.npz`` holds
+each shard's samples; a batch's images are a direct ``sample`` +
+``decode`` on its tokens with the CLI's generator, bit for bit; ``-n``
+caps the count; a dataset the port lacks raises.
 ``dummy_tokens_like`` equals the JAX script's on the BERT and CLIP
 configs.
 """
 
+import copy
+import glob
 import importlib.util
 import os
 import pathlib
@@ -34,6 +42,7 @@ from frido_tpu_torch.config import instantiate_from_config, load_configs
 from frido_tpu_torch.io import checkpoint as ckpt_io
 from frido_tpu_torch.models.frido import FridoDiffusion
 from frido_tpu_torch.text.wordpiece import fallback_vocab
+from frido_tpu_torch.tools.make_mini_coco import write_tree
 from frido_tpu_torch.training.ema import import_ema
 from frido_tpu_torch.utils.visualize import read_png, to_uint8
 
@@ -231,10 +240,123 @@ def test_strict_vocab_refuses_the_fallback(files, monkeypatch, tmp_path):
         _main(tmp_path, "-r", files["ckpt"])
 
 
-def test_dataset_mode_is_not_ported(files, vocab_env, tmp_path):
+def test_dataset_mode_is_not_ported(files, coco2014, vocab_env, tmp_path):
+    """Dataset mode over a dataset the port does not have (OpenImages)
+    raises and names the roadmap."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["-cfg", T2I, "-o", str(tmp_path), "--device", "cpu",
-                  "-r", files["ckpt"], *TOY])
+                  "-r", files["ckpt"], *TOY, *coco2014,
+                  "data.params.test.target=taming.data.annotated_objects_"
+                  "open_images.AnnotatedObjectsOpenImages"])
+
+
+@pytest.fixture(scope="module")
+def coco2014(tmp_path_factory):
+    """A mini-COCO-2014 tree of 7 records a split over the committed JPEG
+    fixtures (``tools/make_mini_coco.write_tree``), and the dot-list that
+    points the t2i config's data section at it (32^2 images, batches of
+    2, one worker)."""
+    root = str(tmp_path_factory.mktemp("coco") / "2014")
+    write_tree(root, n=7, seed=1)
+    dots = ["data.params.batch_size=2", "data.params.num_workers=1"]
+    for split, ann in (("train", "train2014"), ("validation", "val2014"),
+                       ("test", "val2014")):
+        q = f"data.params.{split}.params."
+        dots += [q + f"data_path={root}", q + "target_image_size=32",
+                 q + f"caption_ann_path={root}/annotations/"
+                     f"captions_{ann}.json"]
+    return dots
+
+
+def _dataset_run(files, out, coco2014, shard, *extra):
+    return cli.main(["-cfg", T2I, "-o", str(out), "-r", files["ckpt"],
+                     "-name", f"shard{shard}", "-plms", "-c", "4", "-G",
+                     "-gs", "1.5", "-bs", "4", "--device", "cpu", "-ngpu",
+                     "2", "-igpu", str(shard), *extra, *TOY, *coco2014])
+
+
+@pytest.fixture(scope="module")
+def dataset_runs(files, coco2014, tmp_path_factory):
+    mp = pytest.MonkeyPatch()
+    mp.setenv("HF_HUB_OFFLINE", "1")
+    mp.setenv("FRIDO_TPU_BERT_VOCAB", files["vocab"])
+    _unset(mp, "FRIDO_TPU_STRICT_VOCAB")
+    out = tmp_path_factory.mktemp("dataset")
+    try:
+        runs = [_dataset_run(files, out, coco2014, s, "--get_codebook")
+                for s in range(2)]
+    finally:
+        mp.undo()
+    return runs
+
+
+def test_dataset_shards_equal_the_jax_split(dataset_runs, coco2014,
+                                            vocab_env):
+    """``-ngpu 2``: the shards are disjoint, cover the test split and are
+    the JAX data module's shards, file for file; each shard's npz holds
+    its samples; the PNGs and the inputs are named by file."""
+    cfg = jax_load_configs([T2I], TOY + coco2014)
+    names = []
+    for shard, res in enumerate(dataset_runs):
+        dcfg = copy.deepcopy(cfg["data"])
+        dcfg["params"].update(n_split_dataset=2, idx_split_dataset=shard)
+        jdata = jax_instantiate(dcfg).setup()
+        want = [n for b in jdata.test_dataloader() for n in b["file_name"]]
+        assert res["file_names"] == want
+        names += want
+        imgs = res["images"]
+        assert imgs.dtype == np.uint8 and imgs.shape == (len(want), 32, 32, 3)
+        npz = glob.glob(os.path.join(res["out_dir"], "*-samples.npz"))
+        assert [os.path.basename(f) for f in npz] == [
+            f"{len(want)}x32x32x3-samples.npz"]
+        np.testing.assert_array_equal(np.load(npz[0])["arr_0"], imgs)
+        for key in ("sample", "inputs"):
+            pngs = sorted(os.listdir(os.path.join(res["out_dir"], key)))
+            assert pngs == sorted(os.path.splitext(n)[0] + ".png"
+                                  for n in want)
+        for i, n in enumerate(want):
+            png = read_png(os.path.join(res["out_dir"], "sample",
+                                        os.path.splitext(n)[0] + ".png"))
+            np.testing.assert_array_equal(png, imgs[i])
+        assert len(glob.glob(os.path.join(res["out_dir"], "codes_*.npz"))) \
+            == res["batches"] == (len(want) + 1) // 2
+    assert len(names) == len(set(names)) == 7
+
+
+def test_dataset_batch_equals_direct_sampling(dataset_runs, coco2014,
+                                              vocab_env):
+    """Shard 1's first batch: its captions tokenized as the JAX package
+    tokenizes them, and the CLI's images those of a direct ``sample`` +
+    ``decode`` on those tokens with the CLI's generator (seed + shard),
+    bit for bit."""
+    res = dataset_runs[1]
+    model = res["model"]
+    cfg = load_configs([T2I], TOY + coco2014)
+    dcfg = copy.deepcopy(cfg["data"])
+    dcfg["params"].update(n_split_dataset=2, idx_split_dataset=1)
+    batch = next(iter(instantiate_from_config(dcfg, device="cpu")
+                      .setup().test_dataloader()))
+    assert batch["file_name"] == res["file_names"][:2]
+    tokens = model.tokenize(batch["caption"])
+    jmodel = jax_instantiate(jax_load_configs([T2I], TOY)["model"])
+    np.testing.assert_array_equal(tokens, jmodel.tokenize(batch["caption"]))
+    utokens = cli.dummy_tokens_like(model, tokens, "caption")
+    gen = torch.Generator().manual_seed(42 + 1)
+    with torch.no_grad():
+        ctx = model.get_learned_conditioning(tokens)
+        uctx = model.get_learned_conditioning(utokens)
+        z = model.sample(2, context=ctx, uncond_context=uctx, steps=4,
+                         eta=0.0, guidance_scale=1.5, sampler="plms",
+                         compute_dtype=torch.bfloat16, generator=gen)
+        img = model.decode_first_stage(z).numpy()
+    np.testing.assert_array_equal(to_uint8(img), res["images"][:2])
+
+
+def test_dataset_mode_caps_at_n(files, coco2014, vocab_env, tmp_path):
+    res = _dataset_run(files, tmp_path, coco2014, 0, "-n", "1")
+    assert res["batches"] == 1 and res["images"].shape == (1, 32, 32, 3)
+    assert os.path.exists(os.path.join(res["out_dir"],
+                                       "1x32x32x3-samples.npz"))
 
 
 @pytest.mark.parametrize("flag", [["-n", "8"], ["-ngpu", "2"]])
