@@ -25,7 +25,8 @@ global batch and kept in ``checkpoints/scale_factors.json``; AdamW (bf16
 first moment under ``--adam_mu_bf16``, ``--accumulate_grad_batches``), the
 EMA of the denoiser, the UNet and encode in bf16 under ``--bf16_train``;
 checkpoints (``io/checkpoint.py``) with the loader's cursor in
-``last.json`` so a resume replays the uninterrupted run's batches;
+``last.json`` so a resume replays the uninterrupted run's batches and
+their random draws;
 ``val/loss`` and ``val/loss_ema`` every ``--val_every_steps`` with a
 ``best`` checkpoint on ``val/loss_ema``; SIGUSR1 saves, SIGUSR2 dumps the
 stack (or attaches pdb on a tty); a CSV log (TensorBoard and wandb degrade
@@ -34,10 +35,12 @@ to it when missing); ``--debug`` moves a failed fresh run to
 DDIM in bf16 under the EMA weights and writes PNGs by ``file_name``
 (``--uncond_gen_mode``: seed + rank). Each step's draws come from a
 generator seeded by the seed and the step, so a resume draws what the
-uninterrupted run drew; the data's crop and flip draws are seeded by the
-seed on every rank (the JAX script leaves them unseeded), so the ranks
-together see the one-process run's batches. A resume replays the same
-images; their random crops restart from the seed.
+uninterrupted run drew; the data's crop, flip and builder draws are
+seeded by the seed on every rank (the JAX script leaves them unseeded),
+so the ranks together see the one-process run's batches. A resume
+replays the same images with the same crops, flips and annotation
+shuffles: the loader draws the plans of every batch before the cursor
+again, without their pixels.
 
 Refused at start-up with ``NotImplementedError``: ``--fsdp`` and
 ``--img_log_every_steps`` > 0 (the image logger renders text with PIL,
@@ -221,12 +224,18 @@ def step_seed(seed: int, step: int) -> int:
 def seed_data(data, seed: int) -> None:
     """Every rank draws the same crop and flip plans (each rank plans the
     whole global batch and keeps its rows) and the same builder shuffles:
-    the datasets' pipelines and the global ``random`` seeded alike. The
-    JAX package leaves both to the OS's entropy."""
+    each dataset's pipeline and builders seeded alike, the builders with a
+    ``random.Random`` of the dataset's own, so that validation and the
+    test pass draw nothing from the train split's sequence, and a resume
+    that replays the train plans (``DataLoader.set_cursor``) ends where
+    the uninterrupted run stands. The global ``random`` is seeded too. The
+    JAX package leaves all of them to the OS's entropy."""
     random.seed(seed)
     for ds in data.datasets.values():
         if getattr(ds, "pipeline", None) is not None:
             ds.pipeline.rng.seed(seed)
+        if hasattr(ds, "rng"):
+            ds.rng = random.Random(seed)
 
 
 def peek_first_batch(data, seed: int) -> Dict[str, object]:
@@ -258,13 +267,15 @@ def run_device(args, world: dist.World) -> torch.device:
 def _refuse(args) -> None:
     if args.fsdp:
         raise NotImplementedError(
-            "--fsdp (sharded train state) is not ported yet (ROADMAP.md "
-            "section 1, item 8); data parallelism runs under torchrun")
+            "--fsdp (the sharded train state) is not ported yet (ROADMAP.md "
+            "section 1, 'Sharded scale-out'); data parallelism runs under "
+            "torchrun")
     if args.img_log_every_steps > 0:
         raise NotImplementedError(
             "image logging (ImageLogger, log_images) is not ported yet "
-            "(ROADMAP.md section 1, item 9): it renders text with PIL, which "
-            "the card machine lacks; pass --img_log_every_steps 0")
+            "(ROADMAP.md section 1, 'Image logging'): it renders text with "
+            "PIL, which the card machine lacks; pass --img_log_every_steps "
+            "0")
 
 
 _RUN_LOGDIR = {"path": "", "fresh": False}
@@ -432,7 +443,9 @@ def _train(args, unknown, world, device, t_start):
     sf_path = os.path.join(ckptdir, "scale_factors.json")
     start_step = 0
     # the loader's cursor (shuffle epoch, batches consumed in it), kept in
-    # last.json so that a resume replays the uninterrupted run's batches
+    # last.json so that a resume replays the uninterrupted run's batches,
+    # their crops, flips and builder shuffles included (set_cursor draws
+    # the plans before the cursor again)
     cursor = {"epoch": 0, "batch": 0}
     if os.path.exists(os.path.join(ckptdir, "last.json")):
         start_step = ckpt_io.restore_train_state(ckptdir, tr)

@@ -3,11 +3,10 @@
 YAML configs written against the original torch code name targets such as
 ``frido.models.diffusion.frido.FridoDiffusion``; the alias table maps the
 ones the port builds onto port classes (the models, the conditioning
-encoders, the VQ-GAN loss, the LR schedulers, the COCO dataset and the
-data module), so the diffusion configs under ``configs/frido/`` and
-``configs/msvqgan/msvqgan_f16f8_coco.yaml`` read unmodified. The Visual
-Genome and OpenImages datasets are not ported: their targets resolve to
-:func:`not_ported`, which raises. :func:`load_configs` merges YAML files
+encoders, the VQ-GAN loss, the LR schedulers, the COCO, Visual Genome,
+VG-cocostyle and OpenImages datasets and the data module), so the configs
+under ``configs/frido/`` and ``configs/msvqgan/`` read unmodified.
+:func:`load_configs` merges YAML files
 left to right and applies ``a.b.c=value`` dot-list overrides on top, as
 the CLIs take them.
 """
@@ -71,19 +70,12 @@ _TARGET_ALIASES: Dict[str, str] = {
     "scripts.sample_diffusion.DataModuleFromConfig":
         "frido_tpu_torch.data.datamodule.DataModuleFromConfig",
     "taming.data.annotated_objects_vg.AnnotatedObjectsVg":
-        "frido_tpu_torch.config.not_ported",
+        "frido_tpu_torch.data.vg.AnnotatedObjectsVg",
     "taming.data.annotated_objects_vg_cocostyle.AnnotatedObjectsVg":
-        "frido_tpu_torch.config.not_ported",
+        "frido_tpu_torch.data.vg_cocostyle.AnnotatedObjectsVgCocoStyle",
     "taming.data.annotated_objects_open_images.AnnotatedObjectsOpenImages":
-        "frido_tpu_torch.config.not_ported",
+        "frido_tpu_torch.data.open_images.AnnotatedObjectsOpenImages",
 }
-
-
-def not_ported(**params: Any) -> Any:
-    """The Visual Genome, VG-cocostyle and OpenImages datasets."""
-    raise NotImplementedError(
-        "the Visual Genome and OpenImages datasets are not ported yet "
-        "(ROADMAP.md section 1, item 9); the port reads COCO")
 
 
 def resolve_target(target: str) -> Any:

@@ -12,18 +12,19 @@
 //
 // The decode stops before the chroma upsampling and the colour conversion:
 // it writes the planes as they are coded (NVJPEG_OUTPUT_YUV: Y, Cb and Cr
-// at their own sizes; NVJPEG_OUTPUT_Y for a grey file) into planes the
-// caller allocated on the card, on the caller's stream. The caller
-// upsamples and converts them as libjpeg does (frido_tpu_torch/ops/cuda/
-// jpeg.py): nvJPEG's own upsampling and conversion round differently from
-// libjpeg's, up to 4 levels on a 4:4:4 file and tens of levels at colour
-// edges of a 4:2:0 one. Anything but one or three components (CMYK and
-// other four-component files) or an unknown chroma layout is refused
-// before decoding.
+// at their own sizes; NVJPEG_OUTPUT_Y for a grey file; with `unchanged`,
+// NVJPEG_OUTPUT_UNCHANGED: every component, four for a CMYK or YCCK
+// file, as coded) into planes the caller allocated on the card, on the
+// caller's stream. The caller upsamples and converts them as libjpeg and
+// PIL do (frido_tpu_torch/ops/cuda/jpeg.py): nvJPEG's own upsampling and
+// conversion round differently from libjpeg's, up to 4 levels on a 4:4:4
+// file and tens of levels at colour edges of a 4:2:0 one. A component
+// count other than 1, 3 or 4, or an unknown chroma layout of a 1- or
+// 3-component file, is refused before decoding.
 //
 // C interface, bound with ctypes by frido_tpu_torch/ops/cuda/jpeg.py:
 //   fj_info(data, len, &components, &subsampling, widths[4], heights[4])
-//   fj_decode(data, len, y, cb, cr, components, stream)
+//   fj_decode(data, len, p0, p1, p2, p3, components, unchanged, stream)
 // Both return 0 or an nvjpegStatus_t; fj_decode returns -1 for a layout it
 // refuses.
 
@@ -92,11 +93,13 @@ int fj_info(const unsigned char* data, size_t len, int* components,
   return static_cast<int>(s);
 }
 
-// Decode the coded planes: y [heights[0], widths[0]], and for three
-// components cb and cr at their own sizes (from fj_info), on stream.
-int fj_decode(const unsigned char* data, size_t len, unsigned char* y,
-              unsigned char* cb, unsigned char* cr, int components,
-              cudaStream_t stream) {
+// Decode the coded planes: p0 [heights[0], widths[0]], and for three or
+// four components p1, p2 (and p3) at their own sizes (from fj_info), on
+// stream. `unchanged` (required for four components) asks for the
+// components as coded (NVJPEG_OUTPUT_UNCHANGED).
+int fj_decode(const unsigned char* data, size_t len, unsigned char* p0,
+              unsigned char* p1, unsigned char* p2, unsigned char* p3,
+              int components, int unchanged, cudaStream_t stream) {
   int status = 0;
   Decoder* d = acquire(&status);
   if (d == nullptr) return status;
@@ -110,8 +113,8 @@ int fj_decode(const unsigned char* data, size_t len, unsigned char* y,
     release(d);
     return static_cast<int>(s);
   }
-  if (got != components || (got != 1 && got != 3) ||
-      css == NVJPEG_CSS_UNKNOWN) {
+  if (got != components || (got != 1 && got != 3 && got != 4) ||
+      (got == 4 && !unchanged) || (got != 4 && css == NVJPEG_CSS_UNKNOWN)) {
     release(d);
     return -1;
   }
@@ -120,14 +123,14 @@ int fj_decode(const unsigned char* data, size_t len, unsigned char* y,
     image.channel[c] = nullptr;
     image.pitch[c] = 0;
   }
-  unsigned char* planes[3] = {y, cb, cr};
+  unsigned char* planes[4] = {p0, p1, p2, p3};
   for (int c = 0; c < got; ++c) {
     image.channel[c] = planes[c];
     image.pitch[c] = static_cast<size_t>(widths[c]);
   }
-  s = nvjpegDecode(d->handle, d->state, data, len,
-                   got == 1 ? NVJPEG_OUTPUT_Y : NVJPEG_OUTPUT_YUV, &image,
-                   stream);
+  nvjpegOutputFormat_t fmt = unchanged ? NVJPEG_OUTPUT_UNCHANGED
+                             : (got == 1 ? NVJPEG_OUTPUT_Y : NVJPEG_OUTPUT_YUV);
+  s = nvjpegDecode(d->handle, d->state, data, len, fmt, &image, stream);
   release(d);
   return static_cast<int>(s);
 }

@@ -8,10 +8,13 @@ filtering, the lazy conditional builders and the sample dict restricted to
 - :meth:`AnnotatedObjectsDataset.plan` on the host: the image's record,
   its annotations, the crop and flip drawn from the pipeline (the width
   and height read from the file's header, no decode) and the conditional
-  builders' rows (``build`` shuffles with the global ``random``). The
-  loader calls it in index order on one thread, so the draws are
-  deterministic for any number of workers, and equal the JAX package's
-  where it runs one worker;
+  builders' rows (``build`` shuffles with :attr:`rng`: the global
+  ``random`` unless the caller gives the dataset a ``random.Random`` of
+  its own, as the training CLI does). The loader calls it in index order
+  on one thread, so the draws are deterministic for any number of
+  workers, and equal the JAX package's where it runs one worker; a
+  resumed loader draws the plans of the batches it skips again, without
+  their pixels (``data/datamodule.py``);
 - :meth:`AnnotatedObjectsDataset.load`: the decode and the pixel work on
   the dataset's ``device`` (``data/image_io.py``, ``data/transforms.py``),
   in any thread.
@@ -23,6 +26,7 @@ filtering, the lazy conditional builders and the sample dict restricted to
 from __future__ import annotations
 
 import importlib
+import random
 import struct
 import warnings
 from pathlib import Path
@@ -99,6 +103,10 @@ class AnnotatedObjectsDataset:
                          if crop_method is not None else None)
         self.paths = self.build_paths(self.data_path)
         self._conditional_builders = None
+        # the builders' shuffles (and VG's caption choice): None is the
+        # global ``random``, as in the JAX package
+        self.rng: Optional[random.Random] = None
+        self._sizes: Dict[str, Any] = {}
         self.category_allow_list = None
         if category_allow_list_target:
             allow_list = load_object_from_string(category_allow_list_target)
@@ -205,8 +213,10 @@ class AnnotatedObjectsDataset:
         if "image" in self.keys:
             path = str(self.get_image_path(image_id))
             sample["image_path"] = path
+            if path not in self._sizes:     # read once: a resume replans
+                self._sizes[path] = header_size(path)
             (sample["_spec"], sample["crop_bbox"],
-             sample["flipped"]) = self.pipeline.spec(*header_size(path))
+             sample["flipped"]) = self.pipeline.spec(*self._sizes[path])
         return sample
 
     def _build_conditionals(self, sample: Dict[str, Any]) -> None:
@@ -214,7 +224,7 @@ class AnnotatedObjectsDataset:
             if conditional in self.keys:
                 sample[conditional] = builder.build(
                     sample["annotations"], sample["crop_bbox"],
-                    sample["flipped"])
+                    sample["flipped"], rng=self.rng)
 
     def plan(self, n: int) -> Dict[str, Any]:
         """Everything of sample ``n`` but its pixels, on the host."""

@@ -4,8 +4,9 @@
 Center points, bounding boxes and class-only sequences. Each builder turns
 a ragged list of annotations into a fixed-length int64 numpy vector (the
 pad token is ``no_tokens - 1``) on the host. ``build`` shuffles the
-annotations with the global ``random`` module, as the JAX package does;
-the port's loader calls it in index order on one thread.
+annotations with the global ``random`` module, as the JAX package does,
+or with the ``random.Random`` it is given; the port's loader calls it in
+index order on one thread.
 """
 
 from __future__ import annotations
@@ -148,7 +149,8 @@ class ObjectsCenterPointsConditionalBuilder:
 
     def build(self, annotations: List[Annotation],
               crop_coordinates: Optional[BoundingBox] = None,
-              horizontal_flip: bool = False) -> np.ndarray:
+              horizontal_flip: bool = False,
+              rng: Optional[random.Random] = None) -> np.ndarray:
         if len(annotations) == 0:
             warnings.warn("Did not receive any annotations.")
         if len(annotations) > self.no_max_objects:
@@ -157,7 +159,7 @@ class ObjectsCenterPointsConditionalBuilder:
         if not crop_coordinates:
             crop_coordinates = FULL_CROP
         annotations = list(annotations)
-        random.shuffle(annotations)
+        (random if rng is None else rng).shuffle(annotations)
         annotations = filter_annotations(annotations, crop_coordinates)
         if self.encode_crop:
             annotations = rescale_annotations(annotations, FULL_CROP,

@@ -8,7 +8,7 @@ package's seeded split of the test set into shards.
 
 :class:`DataLoader` shuffles with ``random.Random(seed + epoch)``, drops a
 short last batch under ``drop_last`` and resumes mid-epoch from
-``set_cursor``, as the JAX loader does. Two things are its own:
+``set_cursor``, as the JAX loader does. Three things are its own:
 
 - the plans of every sample of a global batch (crop, flip, builder rows:
   ``dataset.plan``) are drawn in index order on one thread, the producer's,
@@ -24,6 +24,14 @@ short last batch under ``drop_last`` and resumes mid-epoch from
   its last ``len % world_size`` samples on every rank, with a warning
   that names them, since the data-parallel step's draws and its mean
   over the ranks take every rank's rows to be equal in number.
+- a resume (``set_cursor``) draws the plans of every batch before the
+  cursor again, earlier epochs included, in the uninterrupted run's
+  order and without decoding their pixels, before the first batch it
+  yields. A dataset whose plan draws (``pipeline.rng``, ``rng``) stood
+  at their seed when the run began then stands where the uninterrupted
+  run's stands, so the resumed run's crops, flips and builder shuffles
+  are the uninterrupted run's. The JAX loader skips the batches and
+  replays nothing; it seeds its draws from the OS.
 
 With ``num_workers`` > 1 a producer thread runs ahead by at most
 :data:`PREFETCH` batches (the batches lie on the device) and hands on any
@@ -102,6 +110,7 @@ class DataLoader:
         self.world_size = world_size
         self.epoch = 0
         self._skip_batches = 0
+        self._replay = False
 
     def __len__(self):
         n = len(self.indices)
@@ -111,31 +120,51 @@ class DataLoader:
 
     def set_cursor(self, epoch: int, batch_in_epoch: int = 0) -> None:
         """The next ``__iter__`` replays epoch ``epoch``'s order and skips
-        its first ``batch_in_epoch`` batches (a mid-epoch resume)."""
+        its first ``batch_in_epoch`` batches (a mid-epoch resume), after
+        drawing the plans of every batch before them (epochs ``0 ..
+        epoch - 1`` and the skipped ones) as a loader iterated from the
+        start would have drawn them."""
         self.epoch = epoch
         self._skip_batches = batch_in_epoch
+        self._replay = True
 
-    def _batches(self) -> List[List[int]]:
+    def _epoch_batches(self, epoch: int,
+                       warn_from: Optional[int] = 0) -> List[List[int]]:
+        """Epoch ``epoch``'s global batches: its order, a short last batch
+        dropped under ``drop_last``, a last batch that does not split over
+        the ranks cut (with a warning if its index is ``warn_from`` or
+        more; ``None``: none)."""
         order = list(self.indices)
         if self.shuffle:
-            random.Random(self.seed + self.epoch).shuffle(order)
-        self.epoch += 1
+            random.Random(self.seed + epoch).shuffle(order)
         batches = [order[i:i + self.batch_size]
                    for i in range(0, len(order), self.batch_size)]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
-        if self._skip_batches:
-            batches = batches[self._skip_batches:]
-            self._skip_batches = 0
-        for b in batches:
+        for k, b in enumerate(batches):
             cut = len(b) % self.world_size
             if cut:
-                warnings.warn(
-                    f"a last batch of {len(b)} does not split over "
-                    f"{self.world_size} ranks: its samples at dataset indices "
-                    f"{b[-cut:]} are skipped")
+                if warn_from is not None and k >= warn_from:
+                    warnings.warn(
+                        f"a last batch of {len(b)} does not split over "
+                        f"{self.world_size} ranks: its samples at dataset "
+                        f"indices {b[-cut:]} are skipped")
                 del b[-cut:]
-        return [b for b in batches if b]
+        return batches
+
+    def _batches(self) -> List[List[int]]:
+        epoch, skip = self.epoch, self._skip_batches
+        batches = self._epoch_batches(epoch, warn_from=skip)
+        if self._replay and hasattr(self.dataset, "plan"):
+            done = [b for e in range(epoch)
+                    for b in self._epoch_batches(e, warn_from=None)]
+            for b in done + batches[:skip]:
+                for i in b:
+                    self.dataset.plan(i)
+        self._replay = False
+        self._skip_batches = 0
+        self.epoch += 1
+        return [b for b in batches[skip:] if b]
 
     def _plan(self, batch: List[int]) -> List[Any]:
         """This rank's work for a global batch: plans of the whole batch in

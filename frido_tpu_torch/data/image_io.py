@@ -12,9 +12,12 @@ JAX data layer and of ``native_loader.jpeg_dims`` / ``load_one``'s decode:
 - :func:`load_rgb`: a file to uint8 [H, W, 3] on ``device``. A JPEG on a
   CUDA device goes through nvJPEG (``ops/cuda/jpeg.py``); on the CPU
   through PIL, imported inside that branch only: that is the plain
-  version the tests hold the card to. A grey image becomes RGB. A JPEG
-  that is not one or three components (CMYK) is refused on every device
-  with the file's name; nothing falls back to another decoder.
+  version the tests hold the card to. A grey image becomes RGB; a CMYK
+  or YCCK (four-component) file is converted as PIL converts it. A JPEG
+  of another number of components is refused on every device with the
+  file's name; nothing falls back to another decoder;
+- :func:`jpeg_layout`: the components, sampling factors and colour space
+  (libjpeg's reading of the JFIF and Adobe markers) from the header.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from __future__ import annotations
 import io
 import struct
 import zlib
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,11 +37,45 @@ _NO_LENGTH = {0x01, 0xD8, *range(0xD0, 0xD8)}
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}     # colour type -> samples
 
 
-def jpeg_header(data: bytes, name: str = "<bytes>") -> Tuple[int, int, int]:
-    """(width, height, components) from a JPEG's start-of-frame segment."""
+class JpegLayout(NamedTuple):
+    """What a JPEG's markers up to its first scan say: its size, its
+    components (id, horizontal and vertical sampling factors), whether a
+    JFIF (APP0) segment was seen, the Adobe (APP14) transform (None
+    without that segment), and the colour space libjpeg decodes it as."""
+    width: int
+    height: int
+    components: Tuple[Tuple[int, int, int], ...]
+    jfif: bool
+    adobe_transform: Optional[int]
+    colorspace: str
+
+
+def _colorspace(comps, jfif: bool, adobe: Optional[int]) -> str:
+    """libjpeg's guess of the coded colour space (``jdapimin.c``,
+    ``default_decompress_parms``): 'grey', 'ycbcr', 'rgb', 'cmyk',
+    'ycck', or 'components=N' for a count it does not name."""
+    n = len(comps)
+    if n == 1:
+        return "grey"
+    if n == 3:
+        if jfif:
+            return "ycbcr"
+        if adobe is not None:
+            return "rgb" if adobe == 0 else "ycbcr"
+        ids = tuple(c[0] for c in comps)
+        return "rgb" if ids == (82, 71, 66) else "ycbcr"   # 'R', 'G', 'B'
+    if n == 4:
+        if adobe is not None:
+            return "cmyk" if adobe == 0 else "ycck"
+        return "cmyk"
+    return f"components={n}"
+
+
+def jpeg_layout(data: bytes, name: str = "<bytes>") -> JpegLayout:
+    """The :class:`JpegLayout` of a JPEG file's bytes."""
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{name} is not a JPEG")
-    pos = 2
+    pos, frame, jfif, adobe = 2, None, False, None
     while pos + 4 <= len(data):
         if data[pos] != 0xFF:
             raise ValueError(f"{name}: no marker at byte {pos}")
@@ -50,17 +87,34 @@ def jpeg_header(data: bytes, name: str = "<bytes>") -> Tuple[int, int, int]:
             pos += 2
             continue
         (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
-        if marker in _SOF:
-            h, w, comps = struct.unpack(">HHB", data[pos + 5:pos + 10])
-            return w, h, comps
-        if marker == 0xDA:                    # scan data before any frame
+        body = data[pos + 4:pos + 2 + length]
+        if marker in _SOF and frame is None:
+            h, w, n = struct.unpack(">HHB", body[1:6])
+            comps = tuple((body[6 + 3 * i], body[7 + 3 * i] >> 4,
+                           body[7 + 3 * i] & 15) for i in range(n))
+            frame = (w, h, comps)
+        elif marker == 0xE0 and body[:5] == b"JFIF\0":
+            jfif = True
+        elif marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
+            adobe = body[11]
+        elif marker == 0xDA:                  # the first scan
             break
-        if 0xC3 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+        elif 0xC3 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
             raise ValueError(f"{name}: JPEG process SOF{marker - 0xC0} is "
                              f"not decoded (baseline, extended or "
                              f"progressive only)")
         pos += 2 + length
-    raise ValueError(f"{name}: no JPEG frame header")
+    if frame is None:
+        raise ValueError(f"{name}: no JPEG frame header")
+    w, h, comps = frame
+    return JpegLayout(w, h, comps, jfif, adobe,
+                      _colorspace(comps, jfif, adobe))
+
+
+def jpeg_header(data: bytes, name: str = "<bytes>") -> Tuple[int, int, int]:
+    """(width, height, components) from a JPEG's start-of-frame segment."""
+    layout = jpeg_layout(data, name)
+    return layout.width, layout.height, len(layout.components)
 
 
 def _png_chunks(data: bytes, name: str):
@@ -170,10 +224,10 @@ def load_rgb(path, device) -> torch.Tensor:
     device = torch.device(device)
     if data.startswith(_PNG):
         return torch.from_numpy(decode_png(data, name)).to(device)
-    _, _, comps = jpeg_header(data, name)
-    if comps not in (1, 3):
-        raise RuntimeError(f"{name}: a JPEG of {comps} components (CMYK?) "
-                           f"is not decoded; nvJPEG takes 1 or 3")
+    comps = len(jpeg_layout(data, name).components)
+    if comps not in (1, 3, 4):
+        raise RuntimeError(f"{name}: a JPEG of {comps} components is not "
+                           f"decoded (1, 3 or 4 only)")
     if device.type == "cuda":
         from frido_tpu_torch.ops.cuda.jpeg import decode_jpeg
 

@@ -12,8 +12,10 @@ for the newest run of a name with a ``last`` pointer.
 A train state (:func:`train_state`) holds a ``DiffusionTrainer``'s whole
 state: the model's ``state_dict`` (``params``), the EMA of the denoiser
 wrapper (``ema``, keys relative to ``model.model``) and its counter, the
-AdamW moments and counts (and ``MultiSteps``' accumulator), the step.
-:func:`restore_train_state` puts one back into a trainer. A params-only
+AdamW moments and counts (and ``MultiSteps``' accumulator), the step; or
+a ``VQGANTrainer``'s (``VQGANTrainer.state``: both networks, both Adam
+states, the step). :func:`restore_train_state` puts one back into a
+trainer. A params-only
 checkpoint (:func:`save_params`) is ``<path>/params.pt``.
 
 Not carried over: the JAX package's legacy orbax layout whose EMA shadowed
@@ -70,7 +72,10 @@ def restore_raw(path: str) -> Dict[str, Any]:
 
 def train_state(trainer) -> Dict[str, Any]:
     """A ``DiffusionTrainer``'s state as one dict of CPU tensors, in the
-    layout ``DiffusionTrainer.load_state`` takes."""
+    layout ``DiffusionTrainer.load_state`` takes; a ``VQGANTrainer``'s
+    (``VQGANTrainer.state``) likewise."""
+    if hasattr(trainer, "state"):
+        return _cpu(trainer.state())
     opt = trainer.optimizer
     names = {id(p): n for n, p in trainer.model.named_parameters()}
     params = [p for g in opt.param_groups for p in g["params"]]

@@ -14,12 +14,16 @@ a 4:2:0 one. One image per call, on the caller's current stream.
 
 :func:`decode_jpeg` takes the file's bytes and gives uint8 [H, W, 3] RGB;
 a grey (one-component) file is decoded as its one plane and repeated into
-the three channels, as PIL's ``convert("RGB")`` does. Anything else (a
-CMYK or other four-component file, a chroma layout nvJPEG does not know)
-raises with the file's name: there is no other decoder behind this one.
-:func:`decode_planes` gives the coded planes alone; :func:`upsample_plane`
-and :func:`ycc_to_rgb` are device-agnostic. ``decode_jpeg.launches``
-counts nvJPEG decodes.
+the three channels, as PIL's ``convert("RGB")`` does. A four-component
+file is decoded as its four coded planes, which are taken as libjpeg
+takes them (CMYK, or YCCK after an Adobe marker with transform 2) and
+converted as PIL converts CMYK, Adobe-inverted data included
+(:func:`planes_to_rgb`). Anything else (another component count, a
+layout nvJPEG refuses) raises with the file's name: there is no other
+decoder behind this one. :func:`decode_planes` gives the coded planes
+alone; :func:`upsample_plane`, :func:`full_planes`, :func:`ycc_to_rgb`,
+:func:`cmyk_to_rgb` and :func:`planes_to_rgb` are device-agnostic.
+``decode_jpeg.launches`` counts nvJPEG decodes.
 """
 
 from __future__ import annotations
@@ -37,8 +41,8 @@ _STATUS = {1: "NOT_INITIALIZED", 2: "INVALID_PARAMETER", 3: "BAD_JPEG",
            4: "JPEG_NOT_SUPPORTED", 5: "ALLOCATOR_FAILURE",
            6: "EXECUTION_FAILED", 7: "ARCH_MISMATCH", 8: "INTERNAL_ERROR",
            9: "IMPLEMENTATION_NOT_SUPPORTED", 10: "INCOMPLETE_BITSTREAM",
-           -1: "a layout this decoder refuses (not 1 or 3 components, or an "
-               "unknown chroma layout)"}
+           -1: "a layout this decoder refuses (not 1, 3 or 4 components, "
+               "or an unknown chroma layout)"}
 # nvjpegChromaSubsampling_t
 SUBSAMPLING = {0: "4:4:4", 1: "4:2:2", 2: "4:2:0", 3: "4:4:0", 4: "4:1:1",
                5: "4:1:0", 6: "grey", 7: "4:1:0V", -1: "unknown"}
@@ -50,10 +54,9 @@ def _lib() -> ctypes.CDLL:
         lib.fj_info.argtypes = [ctypes.c_char_p, ctypes.c_size_t] + [
             ctypes.POINTER(ctypes.c_int)] * 4
         lib.fj_info.restype = ctypes.c_int
-        lib.fj_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
-                                  ctypes.c_void_p, ctypes.c_void_p,
-                                  ctypes.c_void_p, ctypes.c_int,
-                                  ctypes.c_void_p]
+        lib.fj_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t] + [
+            ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p]
         lib.fj_decode.restype = ctypes.c_int
         lib._frido_typed = True
     return lib
@@ -140,49 +143,107 @@ def ycc_to_rgb(y: torch.Tensor, cb: torch.Tensor,
     return torch.stack([r, g, b], -1).clamp_(0, 255).to(torch.uint8)
 
 
+def cmyk_to_rgb(c: torch.Tensor, m: torch.Tensor, y: torch.Tensor,
+                k: torch.Tensor) -> torch.Tensor:
+    """Full-size int32 C, M, Y, K planes -> uint8 [H, W, 3], as PIL's
+    ``convert("RGB")`` converts CMYK (``Convert.c``, ``cmyk2rgb``): each
+    channel ``nk - nk * x / 255`` with ``nk = 255 - k``, the product
+    rounded by PIL's ``MULDIV255``."""
+    nk = 255 - k
+    out = []
+    for x in (c, m, y):
+        t = x * nk + 128
+        out.append(nk - (((t >> 8) + t) >> 8))
+    return torch.stack(out, -1).clamp_(0, 255).to(torch.uint8)
+
+
+def planes_to_rgb(planes: List[torch.Tensor], colorspace: str,
+                  adobe: bool) -> torch.Tensor:
+    """Full-size int32 coded planes -> uint8 [H, W, 3] as libjpeg decodes
+    and PIL converts them: grey repeated; YCbCr through ``ycc_to_rgb``;
+    RGB as coded; CMYK as coded, YCCK through libjpeg's
+    ``ycck_cmyk_convert`` (YCbCr to RGB, each inverted, K kept); then,
+    after an Adobe marker, inverted again (PIL reads such a file as
+    ``CMYK;I``) and converted by :func:`cmyk_to_rgb`."""
+    if colorspace == "grey":
+        g = planes[0].clamp(0, 255).to(torch.uint8)
+        return g[..., None].expand(*g.shape, 3).contiguous()
+    if colorspace == "ycbcr":
+        return ycc_to_rgb(*planes)
+    if colorspace == "rgb":
+        return torch.stack(planes, -1).clamp_(0, 255).to(torch.uint8)
+    if colorspace not in ("cmyk", "ycck"):
+        raise ValueError(f"no conversion from {colorspace}")
+    if colorspace == "ycck":
+        cmy = 255 - ycc_to_rgb(*planes[:3]).to(torch.int32)
+        planes = list(cmy.unbind(-1)) + [planes[3]]
+    if adobe:
+        planes = [255 - p for p in planes]
+    return cmyk_to_rgb(*planes)
+
+
 def decode_planes(data: bytes, device: torch.device,
                   name: str = "<bytes>") -> List[torch.Tensor]:
     """A JPEG file's coded planes on the CUDA ``device``, as the inverse
     DCT leaves them: uint8 Y [H, W], and for a colour file Cb and Cr at
-    their own sizes."""
+    their own sizes; for a four-component file (CMYK, YCCK) or an RGB one
+    the components as coded (``NVJPEG_OUTPUT_UNCHANGED``)."""
+    from frido_tpu_torch.data.image_io import jpeg_layout
+
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"decode_jpeg decodes on the card, not {device}")
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     comps, css, sizes = jpeg_info(data, name)
-    if comps not in (1, 3) or css == "unknown":
+    if comps not in (1, 3, 4) or (comps != 4 and css == "unknown"):
         raise RuntimeError(f"nvJPEG cannot decode {name}: {comps} "
                            f"components, chroma layout {css}")
-    planes = [torch.empty((h, w), dtype=torch.uint8, device=device)
-              for w, h in sizes]
-    ptrs = [p.data_ptr() for p in planes] + [0] * (3 - comps)
+    unchanged = comps == 4 or jpeg_layout(data, name).colorspace == "rgb"
+    full = max(w * h for w, h in sizes)
+    # each plane in a buffer of the largest plane's size, so that a
+    # decode that wrote a component at another size than fj_info's could
+    # not write past it (the checks against PIL's pixels would show it)
+    bufs = [torch.empty(full, dtype=torch.uint8, device=device)
+            for _ in sizes]
+    ptrs = [b.data_ptr() for b in bufs] + [0] * (4 - comps)
     with device_context(device):
-        rc = _lib().fj_decode(data, len(data), *ptrs, comps,
+        rc = _lib().fj_decode(data, len(data), *ptrs, comps, int(unchanged),
                               raw_stream(device))
     if rc != 0:
         raise RuntimeError(f"nvJPEG cannot decode {name}: {_status(rc)}")
     decode_jpeg.launches += 1
-    return planes
+    return [b[:h * w].view(h, w) for b, (w, h) in zip(bufs, sizes)]
+
+
+def full_planes(planes: List[torch.Tensor], layout,
+                name: str = "<bytes>") -> List[torch.Tensor]:
+    """Coded planes -> int32 planes at the image's size, each upsampled by
+    its component's sampling factors as libjpeg upsamples it."""
+    hmax = max(c[1] for c in layout.components)
+    vmax = max(c[2] for c in layout.components)
+    w, h = layout.width, layout.height
+    out = []
+    for p, (_, hc, vc) in zip(planes, layout.components):
+        hs, vs = hmax // hc, vmax // vc
+        ph, pw = p.shape
+        if (pw, ph) != (-(-w * hc // hmax), -(-h * vc // vmax)):
+            raise RuntimeError(f"{name}: a {pw}x{ph} plane of a {w}x{h} "
+                               f"image at sampling {hc}x{vc} of "
+                               f"{hmax}x{vmax}")
+        out.append(upsample_plane(p.to(torch.int32), hs, vs)[:h, :w])
+    return out
 
 
 def decode_jpeg(data: bytes, device: torch.device,
                 name: str = "<bytes>") -> torch.Tensor:
     """A JPEG file's bytes -> uint8 [H, W, 3] RGB on the CUDA ``device``."""
-    planes = decode_planes(data, device, name)
-    y = planes[0]
-    h, w = y.shape
-    if len(planes) == 1:
-        return y[..., None].expand(h, w, 3).contiguous()
-    chroma = []
-    for p in planes[1:]:
-        ch, cw = p.shape
-        hs, vs = -(-w // cw), -(-h // ch)
-        if (-(-w // hs), -(-h // vs)) != (cw, ch):
-            raise RuntimeError(f"{name}: a {cw}x{ch} chroma plane of a "
-                               f"{w}x{h} image")
-        chroma.append(upsample_plane(p.to(torch.int32), hs, vs)[:h, :w])
-    return ycc_to_rgb(y.to(torch.int32), *chroma)
+    from frido_tpu_torch.data.image_io import jpeg_layout
+
+    layout = jpeg_layout(data, name)
+    planes = full_planes(decode_planes(data, device, name), layout, name)
+    return planes_to_rgb(planes, layout.colorspace,
+                         layout.adobe_transform is not None)
 
 
 decode_jpeg.launches = 0

@@ -14,15 +14,22 @@ packs in half the bytes; :func:`fixture_pixels` gives the pixels back.
 For the 4:4:4 fixture ``pixels.npz`` also holds libjpeg's coded Y, Cb
 and Cr planes (PIL's ``draft("YCbCr")``: no upsampling at 4:4:4, no
 colour conversion), :func:`fixture_planes`, which the card decoder's own
-planes are held to. The fixtures in the repository were written by this
+planes are held to. Four more files (``COLOR_SPECS``) carry the colour
+layouts libjpeg reads besides JFIF YCbCr: CMYK at 4:4:4 (with its coded
+planes) and 4:2:0, YCCK and Adobe RGB; they are not in the tree. The fixtures in the repository were written by this
 command with the defaults, on a machine with Pillow (12.1); the card
 machine has no PIL, so this part runs only where PIL is. It imports numpy and PIL only.
 
-:func:`write_tree` needs neither: it lays out a COCO-2014 checkout
+:func:`write_tree`, :func:`write_vg_tree` and
+:func:`write_open_images_tree` need neither. The first lays out a
+COCO-2014 checkout
 (``train2014/``, ``val2014/``, ``annotations/instances_*.json`` and
 ``captions_*.json``) of ``n`` image records whose files are copies of the
 fixtures, with seeded boxes and captions, for the t2i config's data
-section with ``data_path`` and ``caption_ann_path`` pointed at it.
+section with ``data_path`` and ``caption_ann_path`` pointed at it; the
+others a Visual Genome checkout (with the files its preprocessing
+scripts write) and an OpenImages split, for the VG, VG-cocostyle and
+OpenImages configs' data sections.
 """
 
 from __future__ import annotations
@@ -48,6 +55,19 @@ SPECS = (
     ("square_420.jpg", 612, 612, "RGB", 2, False),
     ("tall_420.jpg", 333, 500, "RGB", 2, False),
 )
+# colour layouts other than JFIF YCbCr, not in the tree (name, width,
+# height, colour space, subsampling, source): CMYK as PIL writes it (Adobe
+# APP14, transform 0, inverted), YCCK and RGB made from another fixture by
+# rewriting its markers (PIL writes neither): the CMYK file with its Adobe
+# transform set to 2, the 4:4:4 file with its JFIF APP0 replaced by an
+# Adobe APP14 of transform 0
+COLOR_SPECS = (
+    ("cmyk_444.jpg", 640, 480, "cmyk", 0, None),
+    ("cmyk_420.jpg", 500, 375, "cmyk", 2, None),
+    ("ycck_444.jpg", 640, 480, "ycck", 0, "cmyk_444.jpg"),
+    ("rgb_444.jpg", 640, 427, "rgb", 0, "wide_444.jpg"),
+)
+_ADOBE_RGB = b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x00"
 CATEGORIES = [{"id": i + 1, "name": n, "supercategory": s} for i, (n, s) in
               enumerate([("person", "person"), ("bus", "vehicle"),
                          ("dog", "animal"), ("chair", "furniture"),
@@ -101,6 +121,34 @@ def write_fixtures(out: str = FIXTURES, seed: int = 0) -> Dict[str, tuple]:
             ycc.draft("YCbCr", ycc.size)
             pixels[name + ":ycbcr"] = np.diff(np.asarray(ycc), axis=1,
                                               prepend=np.uint8(0))
+    for name, w, h, space, sub, src in COLOR_SPECS:
+        path = os.path.join(out, name)
+        if src is None:                 # CMYK: the scene inverted, K a ramp
+            rgb = scene(rng, w, h).astype(np.int32)
+            k = (np.linspace(0, 160, w)[None, :] * np.ones((h, 1))
+                 ).astype(np.int32)
+            cmyk = np.concatenate([255 - rgb - k[..., None] // 2,
+                                   k[..., None]], -1)
+            Image.fromarray(np.clip(cmyk, 0, 255).astype(np.uint8),
+                            "CMYK").save(path, "JPEG", quality=90,
+                                         subsampling=sub)
+            if sub == 0:                # the coded planes, Adobe-inverted
+                pixels[name + ":planes"] = np.diff(
+                    255 - np.asarray(Image.open(path)), axis=1,
+                    prepend=np.uint8(0))
+        else:
+            with open(os.path.join(out, src), "rb") as f:
+                data = bytearray(f.read())
+            if space == "ycck":
+                i = data.index(b"Adobe")
+                data[i + 11] = 2
+            else:                       # rgb: APP0 -> Adobe, transform 0
+                n = int.from_bytes(data[4:6], "big")
+                data = data[:2] + _ADOBE_RGB + data[4 + n:]
+            with open(path, "wb") as f:
+                f.write(bytes(data))
+        pixels[name] = np.diff(np.asarray(Image.open(path).convert("RGB")),
+                               axis=1, prepend=np.uint8(0))
     np.savez_compressed(os.path.join(out, "pixels.npz"), **pixels)
     return sizes
 
@@ -110,16 +158,19 @@ def _stored(fixtures: str) -> Dict[str, np.ndarray]:
         return {k: np.cumsum(d[k], axis=1, dtype=np.uint8) for k in d}
 
 
-def fixture_pixels(fixtures: str = FIXTURES) -> Dict[str, np.ndarray]:
-    """{name: uint8 [H, W, 3]}: the PIL-decoded pixels of each fixture."""
-    return {k: v for k, v in _stored(fixtures).items() if ":" not in k}
+def fixture_pixels(fixtures: str = FIXTURES,
+                   specs=SPECS) -> Dict[str, np.ndarray]:
+    """{name: uint8 [H, W, 3]}: the PIL-decoded pixels of each fixture of
+    ``specs`` (``SPECS``, or ``COLOR_SPECS``)."""
+    names = {s[0] for s in specs}
+    return {k: v for k, v in _stored(fixtures).items() if k in names}
 
 
 def fixture_planes(fixtures: str = FIXTURES) -> Dict[str, np.ndarray]:
-    """{name: uint8 [H, W, 3]}: libjpeg's coded Y, Cb, Cr planes of the
-    4:4:4 fixture."""
+    """{name: uint8 [H, W, C]}: libjpeg's coded planes of the 4:4:4
+    fixtures: Y, Cb, Cr of the YCbCr one, C, M, Y, K of the CMYK one."""
     return {k.split(":")[0]: v for k, v in _stored(fixtures).items()
-            if k.endswith(":ycbcr")}
+            if k.endswith((":ycbcr", ":planes"))}
 
 
 def fixture_sizes(fixtures: str = FIXTURES) -> Dict[str, tuple]:
@@ -171,6 +222,117 @@ def write_tree(root: str, n: int = 64, seed: int = 0,
         with open(os.path.join(root, "annotations",
                                f"captions_{split}.json"), "w") as f:
             json.dump({"annotations": caps}, f)
+    return root
+
+
+def _fixture_cycle(fixtures: str, specs) -> List[str]:
+    return sorted(name for name, *_ in specs
+                  if os.path.exists(os.path.join(fixtures, name)))
+
+
+def write_vg_tree(root: str, n: int = 24, seed: int = 0,
+                  fixtures: str = FIXTURES) -> str:
+    """A Visual Genome checkout of ``n`` images (copies of the fixtures,
+    the colour layouts' included, as ``VG_100K/<id>.jpg``) with what the
+    VG preprocessing scripts write from it: ``image_data.json``, the
+    scene-graph caption JSONs ``{train,val}_sg.json`` (1-3 captions an
+    image) and the COCO-style boxes ``{train,val}_coco_style.json`` (3-6
+    boxes of four categories an image); both splits hold every image.
+    Returns ``root``."""
+    sizes = {name: (w, h) for name, w, h, *_ in SPECS + COLOR_SPECS}
+    names = _fixture_cycle(fixtures, SPECS + COLOR_SPECS)
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "VG_100K"), exist_ok=True)
+    cats = [{"id": i, "name": nm, "supercategory": nm}
+            for i, nm in enumerate(("__image__", "person", "dog", "tree",
+                                    "car"))]
+    raw, images, caps, anns = [], [], [], []
+    for i in range(n):
+        src = names[i % len(names)]
+        w, h = sizes[src]
+        iid = i + 1
+        shutil.copyfile(os.path.join(fixtures, src),
+                        os.path.join(root, "VG_100K", f"{iid}.jpg"))
+        raw.append({"image_id": iid, "width": w, "height": h,
+                    "url": f"https://vg/VG_100K/{iid}.jpg"})
+        images.append({"id": iid, "file_name": f"{iid}.jpg", "width": w,
+                       "height": h, "coco_url": raw[-1]["url"]})
+        for j in range(rng.randint(1, 4)):
+            words = rng.choice(WORDS, rng.randint(3, 7))
+            caps.append({"image_id": iid, "id": 10 * iid + j,
+                         "caption": " ".join(words) + "."})
+        for j in range(rng.randint(3, 7)):
+            bw, bh = rng.uniform(0.2, 0.6) * w, rng.uniform(0.2, 0.6) * h
+            anns.append({"id": 100 * iid + j, "image_id": iid, "iscrowd": 0,
+                         "category_id": int(rng.randint(1, len(cats))),
+                         "bbox": [float(rng.uniform(0, w - bw)),
+                                  float(rng.uniform(0, h - bh)),
+                                  float(bw), float(bh)], "segmentation": []})
+    with open(os.path.join(root, "image_data.json"), "w") as f:
+        json.dump(raw, f)
+    for split in ("train", "val"):
+        with open(os.path.join(root, f"{split}_sg.json"), "w") as f:
+            json.dump({"images": images, "annotations": caps}, f)
+        with open(os.path.join(root, f"{split}_coco_style.json"), "w") as f:
+            json.dump({"images": images, "annotations": anns,
+                       "categories": cats}, f)
+    return root
+
+
+def write_open_images_tree(root: str, n: int = 6, seed: int = 0,
+                           fixtures: str = FIXTURES) -> str:
+    """An OpenImages split at ``root`` (``metadata/classes.csv``,
+    ``labels/detections.csv``, ``metadata/image_ids.csv``,
+    ``data/<16-digit id>.jpg`` copies of the fixtures): every class of the
+    port's top-300 table (Person under its real id ``/m/01g317``, the
+    unification's target; the others under made-up ids), the tortoise
+    (pinned last in the numbering) and a class outside the table; 2-5
+    detections an image, among them classes that the unification maps
+    onto Person, boxes too small for ``min_object_area`` 1e-5 and the
+    class outside the table. Returns ``root``."""
+    import csv
+
+    with open(os.path.join(os.path.dirname(FIXTURES),
+                           "open_images_data.json")) as f:
+        top300 = json.load(f)["top_300_classes_plus_coco_compatibility"]
+    for d in ("metadata", "labels", "data"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    names = sorted({c[0] for c in top300})
+    mids = {nm: ("/m/01g317" if nm == "Person" else f"/m/x{i:04d}")
+            for i, nm in enumerate(names)}
+    with open(os.path.join(root, "metadata", "classes.csv"), "w",
+              newline="") as f:
+        w = csv.writer(f)
+        for nm, m in mids.items():
+            w.writerow([m, nm])
+        w.writerow(["/m/01s55n", "Tortoise"])
+        w.writerow(["/m/zzzz", "Not in the table"])
+    labels = [mids["Car"], mids["Dog"], "/m/03bt1vf", mids["Tree"],
+              "/m/zzzz", mids["Person"]]
+    files = _fixture_cycle(fixtures, SPECS + COLOR_SPECS)
+    rng = np.random.RandomState(seed)
+    rows, ids = [], []
+    for i in range(n):
+        iid = f"{rng.randint(1 << 30):016x}"
+        ids.append(iid)
+        shutil.copyfile(os.path.join(fixtures, files[i % len(files)]),
+                        os.path.join(root, "data", f"{iid}.jpg"))
+        for j in range(2 + i % 4):
+            x0, y0 = rng.uniform(0, 0.6, 2)
+            side = 0.001 if j == 3 else rng.uniform(0.1, 0.4)
+            rows.append(dict(
+                ImageID=iid, Source="xclick",
+                LabelName=labels[(i + j) % len(labels)], Confidence="1",
+                XMin=x0, XMax=x0 + side, YMin=y0, YMax=y0 + side * 1.2,
+                IsOccluded=j % 2, IsTruncated=0, IsGroupOf=int(j == 1),
+                IsDepiction=0, IsInside=0))
+    with open(os.path.join(root, "labels", "detections.csv"), "w",
+              newline="") as f:
+        w = csv.DictWriter(f, list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+    with open(os.path.join(root, "metadata", "image_ids.csv"), "w") as f:
+        f.write("\n".join(ids))
     return root
 
 

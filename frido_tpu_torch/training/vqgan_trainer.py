@@ -129,3 +129,49 @@ class VQGANTrainer:
                 "logits_fake": logits_fake.mean()}
         logs.update(nll_logs)
         return {k: torch.as_tensor(v).detach() for k, v in logs.items()}
+
+    def state(self) -> Dict[str, object]:
+        """The whole train state (live tensors): the generator's and the
+        loss's state dicts (the discriminator's BatchNorm statistics
+        included), both Adam states by parameter name, the step; the
+        layout :meth:`load_state` takes (``io/checkpoint.train_state``
+        copies it to the CPU)."""
+        return {"model": self.model.state_dict(),
+                "loss": self.loss.state_dict(),
+                "opt_g": _adam_state(self.opt_g, self.model),
+                "opt_d": _adam_state(self.opt_d, self.loss),
+                "step": self.step}
+
+    def load_state(self, state: Dict[str, object]) -> None:
+        """Continue from :meth:`state` (as saved by
+        ``io/checkpoint.save_train_state``)."""
+        self.model.load_state_dict(state["model"], strict=True)
+        self.loss.load_state_dict(state["loss"], strict=True)
+        _load_adam(self.opt_g, self.model, state["opt_g"])
+        _load_adam(self.opt_d, self.loss, state["opt_d"])
+        self.step = int(state["step"])
+
+
+def _adam_params(opt: AdamW, module: nn.Module):
+    names = {id(p): n for n, p in module.named_parameters()}
+    return [(names[id(p)], p) for g in opt.param_groups for p in g["params"]]
+
+
+def _adam_state(opt: AdamW, module: nn.Module) -> Dict[str, object]:
+    states = {n: opt._state(p) for n, p in _adam_params(opt, module)}
+    return {"count": opt.count,
+            "mu": {n: st["mu"] for n, st in states.items()},
+            "nu": {n: st["nu"] for n, st in states.items()}}
+
+
+def _load_adam(opt: AdamW, module: nn.Module,
+               adam: Dict[str, object]) -> None:
+    params = _adam_params(opt, module)
+    if set(adam["mu"]) != {n for n, _ in params}:
+        raise KeyError("the Adam state does not cover the optimizer's "
+                       "parameters")
+    for n, p in params:
+        st = opt._state(p)
+        st["mu"].copy_(adam["mu"][n])
+        st["nu"].copy_(adam["nu"][n])
+    opt.count = adam["count"]

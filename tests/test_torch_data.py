@@ -60,11 +60,15 @@ from frido_tpu_torch.data import datamodule as pdm
 from frido_tpu_torch.data.coco import AnnotatedObjectsCoco
 from frido_tpu_torch.data.helper_types import Annotation
 from frido_tpu_torch.data.image_io import (decode_png, image_size,
-                                           jpeg_header, load_rgb)
+                                           jpeg_header, jpeg_layout,
+                                           load_rgb)
 from frido_tpu_torch.data.transforms import ImagePipeline
-from frido_tpu_torch.ops.cuda.jpeg import upsample_plane, ycc_to_rgb
-from frido_tpu_torch.tools.make_mini_coco import (FIXTURES, SPECS,
-                                                  fixture_pixels)
+from frido_tpu_torch.ops.cuda.jpeg import (full_planes, planes_to_rgb,
+                                           upsample_plane, ycc_to_rgb)
+from frido_tpu_torch.tools.make_mini_coco import (COLOR_SPECS, FIXTURES,
+                                                  SPECS, fixture_pixels,
+                                                  fixture_planes,
+                                                  write_open_images_tree)
 
 torch.set_num_threads(2)
 
@@ -281,10 +285,50 @@ def test_png_decode_and_header_sizes_equal_pil(tmp_path):
 
 
 def test_cmyk_jpeg_is_refused_with_its_name(tmp_path):
+    """A CMYK JPEG is decoded now, as PIL converts it; what stays refused
+    with the file's name is a component count other than 1, 3 or 4 (here
+    a CMYK file whose frame header is rewritten to claim 2)."""
     path = tmp_path / "cmyk.jpg"
     Image.new("CMYK", (16, 16), (10, 20, 30, 40)).save(path)
-    with pytest.raises(RuntimeError, match="cmyk.jpg"):
-        load_rgb(path, "cpu")
+    np.testing.assert_array_equal(
+        load_rgb(path, "cpu").numpy(),
+        np.asarray(Image.open(path).convert("RGB")))
+    data = bytearray(path.read_bytes())
+    sof = data.index(b"\xff\xc0")
+    data[sof + 9] = 2
+    bad = tmp_path / "two.jpg"
+    bad.write_bytes(bytes(data))
+    with pytest.raises(RuntimeError, match="two.jpg"):
+        load_rgb(bad, "cpu")
+
+
+def test_colour_layouts_equal_pil():
+    """The CMYK (4:4:4, 4:2:0), YCCK and Adobe RGB fixtures: their colour
+    space read from the markers as libjpeg reads it; ``load_rgb`` on the
+    CPU equal to PIL's committed pixels; and the card path's arithmetic
+    (``full_planes`` + ``planes_to_rgb``, as ``decode_jpeg`` runs it on
+    nvJPEG's planes) on libjpeg's own coded planes equal to PIL's RGB, 0
+    levels: CMYK with the Adobe inversion, YCCK through libjpeg's
+    ``ycck_cmyk_convert``, RGB as coded."""
+    pixels, planes = fixture_pixels(specs=COLOR_SPECS), fixture_planes()
+    src = {"cmyk_444.jpg": "cmyk_444.jpg", "ycck_444.jpg": "cmyk_444.jpg",
+           "rgb_444.jpg": "wide_444.jpg"}
+    for name, w, h, space, sub, _ in COLOR_SPECS:
+        path = os.path.join(FIXTURES, name)
+        layout = jpeg_layout(open(path, "rb").read(), name)
+        assert (layout.width, layout.height, layout.colorspace) == \
+            (w, h, space)
+        assert layout.adobe_transform == {"cmyk": 0, "ycck": 2,
+                                          "rgb": 0}[space]
+        got = load_rgb(path, "cpu")
+        assert got.dtype == torch.uint8
+        np.testing.assert_array_equal(got.numpy(), pixels[name])
+        if name in src:
+            coded = torch.from_numpy(planes[src[name]].copy())
+            full = full_planes(list(coded.to(torch.uint8).unbind(-1)),
+                               layout, name)
+            rgb = planes_to_rgb(full, space, True)
+            np.testing.assert_array_equal(rgb.numpy(), pixels[name])
 
 
 @pytest.mark.parametrize("encode_crop", [False, True])
@@ -462,10 +506,22 @@ def test_datamodule_from_config_equals_jax(coco_root, monkeypatch):
 
 
 def test_unported_datasets_and_default_device(coco_root, monkeypatch):
+    """The Visual Genome, VG-cocostyle and OpenImages targets, refused
+    before, resolve to the port's datasets (the JAX package's classes'
+    counterparts); a dataset runs on the card by default."""
+    from frido_tpu.config import resolve_target as jax_resolve
+    from frido_tpu_torch.config import resolve_target
+
     for target in ("taming.data.annotated_objects_vg.AnnotatedObjectsVg",
+                   "taming.data.annotated_objects_vg_cocostyle."
+                   "AnnotatedObjectsVg",
                    "taming.data.annotated_objects_open_images."
                    "AnnotatedObjectsOpenImages"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        got, want = resolve_target(target), jax_resolve(target)
+        assert got.__module__.startswith("frido_tpu_torch.data.")
+        assert (got.__module__.split(".")[-1], got.__name__) == \
+            (want.__module__.split(".")[-1], want.__name__)
+        with pytest.raises(TypeError):
             instantiate_from_config({"target": target, "params": {}},
                                     device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -535,3 +591,189 @@ def test_ycc_to_rgb_equals_libjpeg():
         assert got.dtype == torch.uint8
         np.testing.assert_array_equal(
             got.numpy(), np.asarray(Image.open(path).convert("RGB")))
+
+
+# ---- a resume replays the plans ------------------------------------------
+def test_resumed_loader_replays_the_plans(coco_root):
+    """A loader resumed at epoch 1, batch 1 (``set_cursor``) on a fresh
+    dataset seeded as the first was yields the uninterrupted loader's
+    batches from there: random-1d crops, flips and the builders' shuffles
+    of several annotations an image (``objects_bbox``) included, at one
+    worker and at four. It draws the plans of the batches it skips, from
+    the seed, without their pixels."""
+    kw = dict(crop_method="random-1d", random_flip=True, split="train",
+              caption_ann_path=str(coco_root /
+                                   "annotations/captions_train2017.json"))
+
+    def loader(workers):
+        _, pds = _pair(coco_root, **kw)
+        pds.rng = random.Random(5)
+        random.seed(11)
+        return pdm.DataLoader(pds, 2, shuffle=True, num_workers=workers,
+                              drop_last=True)
+
+    straight = loader(1)
+    want = [b for _ in range(2) for b in straight]
+    assert len(want) == 6
+    for workers in (1, 4):
+        resumed = loader(workers)
+        resumed.set_cursor(1, 1)
+        got = list(resumed)
+        assert len(got) == 2
+        for g, w in zip(got, want[4:]):
+            for k in KEYS:
+                if k == "image":
+                    assert torch.equal(g[k], w[k])
+                else:
+                    assert _same(g[k], w[k]), k
+    flips = [f for b in want for f in b["flipped"]]
+    assert len(set(flips)) == 2
+
+
+# ---- Visual Genome, VG-cocostyle and OpenImages --------------------------
+_VG_FILES = ("landscape_420.jpg", "grey.jpg", "cmyk_444.jpg")   # 640x480
+
+
+@pytest.fixture(scope="module")
+def vg_root(tmp_path_factory):
+    """A synthetic VG dump (``tests/test_vg_preprocess.py``'s, four
+    objects an image) through ``scripts/preprocess_vg_sg2im.py``,
+    ``preprocess_vg_to_sg.py`` and ``convert_vg_to_coco_style.py``; a
+    second and third caption added to each image of ``train_sg.json``;
+    ``VG_100K/<id>.jpg`` copies of the 640x480 fixtures (a CMYK one
+    among them)."""
+    import shutil
+    import subprocess
+    import sys
+
+    root = tmp_path_factory.mktemp("vg")
+    images, objects, rels, attrs = [], [], [], []
+    (root / "VG_100K").mkdir()
+    for iid in range(1, 13):
+        shutil.copyfile(os.path.join(FIXTURES, _VG_FILES[iid % 3]),
+                        root / "VG_100K" / f"{iid}.jpg")
+        images.append(dict(image_id=iid, width=640, height=480,
+                           url=f"http://vg/VG_100K/{iid}.jpg"))
+        objects.append(dict(image_id=iid, objects=[
+            dict(object_id=iid * 10 + j, names=[n], x=10 * j + iid,
+                 y=5 * j, w=100 + 10 * j, h=120)
+            for j, n in enumerate(["person", "dog", "tree", "person"])]))
+        rels.append(dict(image_id=iid, relationships=[dict(
+            relationship_id=iid, predicate="next to",
+            subject=dict(object_id=iid * 10),
+            object=dict(object_id=iid * 10 + 1))]))
+        attrs.append(dict(image_id=iid, attributes=[dict(
+            object_id=iid * 10, attributes=["tall"])]))
+    for name, payload in [("image_data.json", images),
+                          ("objects.json", objects),
+                          ("relationships.json", rels),
+                          ("attributes.json", attrs)]:
+        (root / name).write_text(json.dumps(payload))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    runs = [["preprocess_vg_sg2im.py", "--vg_dir", str(root),
+             "--min_object_instances", "2", "--min_attribute_instances", "2",
+             "--min_relationship_instances", "2",
+             "--min_objects_per_image", "2"]]
+    for split in ("train", "val"):
+        runs += [["preprocess_vg_to_sg.py", "--base_dir", str(root),
+                  "--split", split],
+                 ["convert_vg_to_coco_style.py", "-b", str(root), "-s",
+                  split]]
+    for script, *args in runs:
+        subprocess.run([sys.executable, os.path.join(repo, "scripts", script),
+                        *args], check=True, capture_output=True)
+    sg = json.loads((root / "train_sg.json").read_text())
+    for a in list(sg["annotations"]):
+        for k in (1, 2):
+            sg["annotations"].append(dict(a, id=a["id"] + 100 * k,
+                                          caption=f"{a['caption']} {k}."))
+    (root / "train_sg.json").write_text(json.dumps(sg))
+    return root
+
+
+def _vg_kw(root, **kw):
+    args = dict(data_path=str(root), split="train", target_image_size=32,
+                min_object_area=1e-5, min_objects_per_image=0,
+                max_objects_per_image=8, crop_method="random-1d",
+                random_flip=True, no_tokens=1024, use_group_parameter=True,
+                encode_crop=True, use_stuff=False)
+    args.update(kw)
+    return args
+
+
+def _equal_samples(jds, pds, keys):
+    """Every sample of both datasets, their draws seeded alike: the keys
+    exactly, the pixels within the PIL path's bounds."""
+    for ds in (jds, pds):
+        ds.pipeline.rng = random.Random(3)
+    want, got = _samples(jds), _samples(pds)
+    assert len(got) == len(want) > 0
+    for w, g in zip(want, got):
+        assert set(g) == set(w) == set(keys)
+        for k in keys:
+            if k != "image":
+                assert _same(g[k], w[k]), (k, g[k], w[k])
+        _assert_pixels(g["image"], w["image"])
+    return got
+
+
+def test_vg_samples_equal_jax(vg_root, monkeypatch):
+    from frido_tpu.data.vg import AnnotatedObjectsVg as JaxVg
+    from frido_tpu_torch.data.vg import AnnotatedObjectsVg
+
+    monkeypatch.setenv("FRIDO_NATIVE_LOADER", "0")
+    keys = ["image", "caption", "file_name", "crop_bbox", "flipped"]
+    kw = _vg_kw(vg_root, keys=keys,
+                caption_ann_path=str(vg_root / "train_sg.json"))
+    got = _equal_samples(JaxVg(**kw), AnnotatedObjectsVg(device="cpu", **kw),
+                         keys)
+    assert len({s["caption"][-1] for s in got}) > 1      # choices drawn
+
+
+def test_vg_cocostyle_samples_equal_jax(vg_root, monkeypatch):
+    from frido_tpu.data.vg_cocostyle import (AnnotatedObjectsVgCocoStyle
+                                             as JaxVgCoco)
+    from frido_tpu_torch.data.vg_cocostyle import AnnotatedObjectsVgCocoStyle
+
+    monkeypatch.setenv("FRIDO_NATIVE_LOADER", "0")
+    keys = ["image", "objects_bbox", "file_name", "annotations",
+            "crop_bbox", "flipped"]
+    kw = _vg_kw(vg_root, keys=keys, min_objects_per_image=3)
+    jds = JaxVgCoco(**kw)
+    pds = AnnotatedObjectsVgCocoStyle(device="cpu", **kw)
+    assert pds.category_number == jds.category_number
+    got = _equal_samples(jds, pds, keys)
+    assert all(len(s["annotations"]) == 4 for s in got)
+
+
+@pytest.fixture(scope="module")
+def oi_root(tmp_path_factory):
+    """``tools/make_mini_coco.write_open_images_tree``: 6 images, every
+    top-300 class, the tortoise, a class outside the table, detections
+    that the unification maps onto Person and boxes too small."""
+    return write_open_images_tree(
+        str(tmp_path_factory.mktemp("oi") / "train"), n=6, seed=8)
+
+
+def test_open_images_samples_equal_jax(oi_root, monkeypatch):
+    from frido_tpu.data.open_images import (AnnotatedObjectsOpenImages as
+                                            JaxOpenImages)
+    from frido_tpu_torch.data.open_images import AnnotatedObjectsOpenImages
+
+    monkeypatch.setenv("FRIDO_NATIVE_LOADER", "0")
+    keys = ["image", "objects_bbox", "file_name", "annotations",
+            "crop_bbox", "flipped"]
+    kw = _vg_kw(oi_root, keys=keys, min_objects_per_image=2,
+                max_objects_per_image=30, use_additional_parameters=False)
+    del kw["use_stuff"]
+    with pytest.warns(UserWarning, match="subset of OpenImages"):
+        jds = JaxOpenImages(**kw)
+    with pytest.warns(UserWarning, match="subset of OpenImages"):
+        pds = AnnotatedObjectsOpenImages(device="cpu", **kw)
+    assert pds.category_ids == jds.category_ids
+    assert pds.category_ids[-1] == "/m/01s55n"
+    assert pds.image_ids == jds.image_ids
+    got = _equal_samples(jds, pds, keys)
+    cats = {a.category_id for s in got for a in s["annotations"]}
+    assert "/m/01g317" in cats and "/m/03bt1vf" not in cats
+    assert "/m/zzzz" not in cats

@@ -52,8 +52,8 @@ from frido_tpu_torch.ops.cuda.conv import (conv3x3, conv3x3_norm_silu,
 from frido_tpu_torch.ops.cuda.norm import (group_norm, group_norm_plain,
                                            group_norm_plan)
 from frido_tpu_torch.ops.cuda.vq import vq_argmin, vq_argmin_plain, vq_plan
-from frido_tpu_torch.tools.make_mini_coco import (FIXTURES, SPECS,
-                                                  fixture_pixels,
+from frido_tpu_torch.tools.make_mini_coco import (COLOR_SPECS, FIXTURES,
+                                                  SPECS, fixture_pixels,
                                                   fixture_planes)
 
 BF16_RTOL = 2.0 ** -8
@@ -847,6 +847,34 @@ def test_group_norm_kernel_at_the_layout2i_unet_site(cuda, eps, silu):
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     ok, err = _within(got, want, 5e-5, torch.bfloat16)
     assert ok, err
+
+
+@pytest.mark.parametrize("name", [spec[0] for spec in COLOR_SPECS])
+def test_jpeg_colour_layouts_match_pil(cuda, name):
+    """CMYK (4:4:4, 4:2:0), YCCK and Adobe RGB: nvJPEG's coded planes
+    (``NVJPEG_OUTPUT_UNCHANGED``) converted as PIL converts them, within 3
+    levels of PIL's pixels (the 4:4:4 fixtures' bound), mean 0.05; the
+    CMYK 4:4:4 planes within 1 level of libjpeg's."""
+    import os
+
+    from frido_tpu_torch.data.image_io import load_rgb
+    from frido_tpu_torch.ops.cuda.jpeg import decode_jpeg, decode_planes
+
+    path = os.path.join(FIXTURES, name)
+    want = torch.from_numpy(fixture_pixels(specs=COLOR_SPECS)[name])
+    before = decode_jpeg.launches
+    img = load_rgb(path, cuda)
+    assert decode_jpeg.launches == before + 1
+    assert img.device.type == "cuda" and img.dtype == torch.uint8
+    assert img.shape == want.shape
+    d = (img.cpu().int() - want.int()).abs()
+    assert d.max().item() <= 3 and d.float().mean().item() <= 0.05
+    coded = fixture_planes().get(name)
+    if coded is not None:
+        with open(path, "rb") as f:
+            planes = decode_planes(f.read(), cuda, name)
+        got = torch.stack(planes, -1).cpu().int()
+        assert (got - torch.from_numpy(coded).int()).abs().max() <= 1
 
 
 @pytest.mark.parametrize("name", [spec[0] for spec in SPECS])

@@ -241,9 +241,12 @@ def test_strict_vocab_refuses_the_fallback(files, monkeypatch, tmp_path):
 
 
 def test_dataset_mode_is_not_ported(files, coco2014, vocab_env, tmp_path):
-    """Dataset mode over a dataset the port does not have (OpenImages)
-    raises and names the roadmap."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Dataset mode over the OpenImages target, which the port refused
+    until it had the dataset, now builds the port's OpenImages dataset:
+    given the COCO tree's parameters it raises that class's own
+    ``TypeError`` (no ``use_additional_parameters``), as the JAX class
+    does."""
+    with pytest.raises(TypeError, match="use_additional_parameters"):
         cli.main(["-cfg", T2I, "-o", str(tmp_path), "--device", "cpu",
                   "-r", files["ckpt"], *TOY, *coco2014,
                   "data.params.test.target=taming.data.annotated_objects_"
@@ -256,7 +259,10 @@ def coco2014(tmp_path_factory):
     fixtures (``tools/make_mini_coco.write_tree``), and the dot-list that
     points the t2i config's data section at it (32^2 images, batches of
     2, one worker)."""
-    root = str(tmp_path_factory.mktemp("coco") / "2014")
+    # not "coco": pytest would number it after a "coco2017N" directory of
+    # another test file in the same worker, putting "2017" in the path,
+    # which the dataset reads as the COCO year
+    root = str(tmp_path_factory.mktemp("tree") / "2014")
     write_tree(root, n=7, seed=1)
     dots = ["data.params.batch_size=2", "data.params.num_workers=1"]
     for split, ann in (("train", "train2014"), ("validation", "val2014"),

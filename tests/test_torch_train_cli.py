@@ -6,10 +6,13 @@ COCO-2017 tree, copied here).
   depend on the world size) validates, keeps ``best``, writes its
   checkpoints and ``scale_factors.json``, and its test pass writes PNGs
   of the samples and inputs by file name.
-- A run of 2 steps resumed for a third (``--auto_resume``) ends with the
-  uninterrupted run's weights, EMA and Adam moments, bit for bit: the
-  resumed loader replays the same batches (the cursor in ``last.json``)
-  and each step draws from a generator seeded by the step.
+- A run of 2 steps resumed for two more (``--auto_resume``), on a tree
+  of non-square images with several boxes each, random-1d crops and
+  flips, ends with the uninterrupted run's weights, EMA and Adam moments,
+  bit for bit: the resumed loader replays the same batches (the cursor in
+  ``last.json``) with the same crops, flips and builder shuffles (it
+  draws the skipped batches' plans again), and each step draws from a
+  generator seeded by the step.
 - Two gloo ranks under ``torch.distributed.run`` for three steps against
   one process on the same global batches of 2, random-1d crops and
   flips (by the third step every trainable leaf has had a gradient; see
@@ -222,21 +225,43 @@ def test_cli_trains_validates_checkpoints_and_tests(straight):
     assert os.listdir(os.path.join(run, "configs"))
 
 
-def test_resume_replays_the_uninterrupted_run(workspace, straight):
+def test_resume_replays_the_uninterrupted_run(workspace):
+    """Four steps straight against two steps resumed for two more
+    (``--auto_resume``), on a mini-COCO-2014 tree of six non-square
+    images with 2-5 boxes each (``tools/make_mini_coco.write_tree``),
+    random-1d crops, flips and the objects builder's shuffles: batches of
+    2, so the resume skips two batches of epoch 0, takes its third and
+    then epoch 1's first. The fourth step's weights, EMA and Adam moments
+    equal the uninterrupted run's bit for bit: the resumed loader draws
+    the plans of the batches it skips again (``DataLoader.set_cursor``)
+    and each step draws from a generator seeded by the step."""
+    from frido_tpu_torch.tools.make_mini_coco import write_tree
+
     root, cfg_path, _ = workspace
-    logdir = root / "resumed"
-    base = ["-b", str(cfg_path), "-t", "-l", str(logdir),
-            "--val_every_steps", "0", "--no_test", "True", *COMMON]
-    run_cli([*base, "--max_steps", "2"], root)
-    r = run_cli([*base, "--max_steps", "3", "--auto_resume", "True"], root)
+    tree = write_tree(str(root / "replay" / "coco2014"), n=6, seed=5)
+    dots = []
+    for split in ("train", "validation", "test"):
+        q = f"data.params.{split}.params."
+        dots += [q + f"data_path={tree}", q + "max_objects_per_image=5"]
+    q = "data.params.train.params."
+    dots += [q + "crop_method=random-1d", q + "random_flip=true"]
+    base = ["-b", str(cfg_path), "-t", "--val_every_steps", "0",
+            "--no_test", "True", *dots, *COMMON]
+    run_cli([*base, "-l", str(root / "replay" / "straight"), "--max_steps",
+             "4"], root)
+    logdir = root / "replay" / "resumed"
+    run_cli([*base, "-l", str(logdir), "--max_steps", "2"], root)
+    r = run_cli([*base, "-l", str(logdir), "--max_steps", "4",
+                 "--auto_resume", "True"], root)
     assert "Restored training state at step 2 (epoch 0, batch 2)" in r.stdout
-    want, got = _state(straight[1], 3), _state(_run_dir(logdir), 3)
+    want = _state(_run_dir(root / "replay" / "straight"), 4)
+    got = _state(_run_dir(logdir), 4)
     for part in ("params", "ema"):
         for k, v in want[part].items():
             assert torch.equal(got[part][k], v), (part, k)
     for k, v in want["adam"]["mu"].items():
         assert torch.equal(got["adam"]["mu"][k], v), k
-    assert got["ema_updates"] == want["ema_updates"] == 3
+    assert got["ema_updates"] == want["ema_updates"] == 4
 
 
 def test_two_gloo_ranks_equal_one_process(workspace):
