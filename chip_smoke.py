@@ -75,13 +75,28 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    its launches per step held to the architecture's (the backward
    recomputes through the plain versions and launches nothing), img/s,
    step seconds, peak memory above the model and a profiled step; LPIPS
-   with seeded weights at the GAN's batch, card against CPU;
+   with seeded weights at the GAN's batch, card against CPU; the t2i
+   step with ``fsdp=True`` at world size 1 (a one-rank NCCL group)
+   bit for bit the replicated step, deterministic algorithms on, after
+   a control that the replicated step repeats bit for bit; every
+   distinct kernel site a tensor-parallel rank at n_model 2 and 4 runs
+   in that train step and in the fp32 first stage (each 3x3 conv and
+   fused prologue at cout / n_model; ``parallel/tp.py``), checked and
+   gradient-checked as in 5; image logging: ``log_images`` of the t2i
+   model at batch 8 through ``ImageLogger`` (the config's flags: the
+   reconstruction bit for bit the card's encode and decode, the captions'
+   text render bit for bit the host's, each PNG read back equal to its
+   grid; then with ``plot_sample`` and ``plot_quantize_denoised`` at
+   DDIM 20 bit for bit direct sample + decode), and every gallery of the
+   toy model on the card;
 7. the layout2i sites: every distinct kernel call of one all-kernel pass
    of the layout2i model at batch 4 (conditioning, a UNet call per stage,
    decode) and of its encode, and flash and the VQ argmin at the decode
    chunk of 32, each checked as in 5 unless checked before (in 2 or an
    earlier pass); then the layout2i path in each configuration, as in 4,
-   and its first stage, as in 5;
+   and its first stage, as in 5; its ``log_images`` with the box render
+   of ``objects_bbox`` bit for bit ``plot_bbox_conditioning``, the PNGs
+   read back;
 8. the CLIP towers with seeded weights at full width, card against CPU in
    fp32: the text tower on the CLIP tokenizer's [4, 77] ids of four
    captions (pooled embedding and per-token states) and the ViT-L/14
@@ -118,9 +133,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    --bf16_train`` (NCCL at world size 1), the config's data section
    pointed at the tree, 3 steps default and 2 all-kernel, each with its
    test pass (DDIM 20, one test batch of 32, PNGs); launches per step held
-   to the architecture's (the CLI prints its counts); set-up seconds, step
-   seconds, training img/s, the loader wait share, peak memory above the
-   model; the default run resumed from ``last`` for one more step;
+   to the architecture's (the CLI prints its counts, the image log's
+   encode and decode at step 3 beside); set-up seconds, step seconds,
+   training img/s, the loader wait share, peak memory above the model,
+   train state a rank, the image log's seconds and its PNGs (inputs and
+   captions equal to the CLI loader's third batch's grids); the default
+   resumed from ``last`` for one more step with ``--fsdp`` (NCCL, world
+   size 1: the sharded restore, train state a rank);
 14. dataset sampling: the sampling CLI over the tree's test split from the
    training CLI's run (its EMA), PLMS 20, CFG 1.5, batches of 4, two
    shards (``-ngpu 2 -igpu 0`` then ``1``), 8 samples each: each shard's
@@ -141,7 +160,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    trained model's reconstructions, card against CPU;
 17. the VG (sg2i), VG-cocostyle and OpenImages (layout2i) configs' train
    loaders over synthetic trees written from the fixtures: one batch at
-   each config's batch size, each sample card against CPU.
+   each config's batch size, each sample card against CPU;
+18. with two cards or more, ``tools/dryrun_multichip.py --full`` under
+   torchrun on min(4, count) of them (NCCL): the four checks of the JAX
+   dry run at full t2i width; with one card a line says it was not run.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit; before that, one ``{"kernels": [...]}``
@@ -482,6 +504,18 @@ MSVQ_CLI_STEPS = {"default": 3, "all-kernel": 1}
 MSVQ_CKPT_EVERY = 2
 MSVQ_STEP_RTOL = 1e-6
 MSVQ_SEED = 23
+CLI_TRAIN_SEED = 23         # the training CLI's default --seed
+IMG_LOG_EVERY = 3           # the training CLI's image log fires at step 3
+LOG_N = 8                   # ImageLogger's max_images
+LOG_DDIM_STEPS = 20
+LOG_CAPTIONS = ("a red double-decker bus on a wet street at night",
+                "AVATAR To WAVE fi ff", "café crème — naïve 日本",
+                "two dogs", "a plate of food with a fork and a knife "
+                "next to a glass of water on a wooden table", "x",
+                "", "a man riding a wave on top of a surfboard")
+TP_SIZES = (2, 4)
+FSDP_STEPS = 2
+DRYRUN_TIMEOUT = 900
 VG_IMAGES, OI_IMAGES = 24, 8
 
 
@@ -2111,7 +2145,7 @@ def diffusion_sites_phase(model):
             batch, torch.Generator().manual_seed(15)), grad=True)
     del tr, batch
     torch.cuda.empty_cache()
-    return check_sites(found, "t2i diffusion train step")
+    return check_sites(found, "t2i diffusion train step"), found
 
 
 def gan_sites_phase(model, loss):
@@ -2737,27 +2771,45 @@ def run_train_cli(name, args, env=None):
 def train_cli_phase(card, dots, arch, label, steps, logroot, resume):
     """The full-width t2i training CLI under torchrun --standalone
     --nproc_per_node 1 (NCCL at world size 1), --bf16_train, the config's
-    batch of 32 from the tree, ``steps`` steps, then its test pass (DDIM
-    CLI_TEST_STEPS, one test batch, PNGs); launches per step held to the
-    architecture's; with ``resume``, one more step resumed from ``last``.
-    Returns the run directory."""
+    batch of 32 from the tree, ``steps`` steps with the image log every
+    IMG_LOG_EVERY steps, then its test pass (DDIM CLI_TEST_STEPS, one
+    test batch, PNGs); launches per step held to the architecture's. With
+    ``resume``: the image log's PNGs checked (``cli_image_log_check``),
+    then one more step with ``--fsdp`` resumed from the run's ``last``
+    (the sharded restore; ``fsdp_phase`` holds the ``--fsdp`` step bit
+    for bit to the replicated one). Returns the run directory."""
     all_kernel = label == "all-kernel"
     name = f"t2i training CLI, {label}"
     run_name = f"t2i_cli_{label.replace('-', '_')}"
     common = ["-b", str(T2I), "-t", "--bf16_train", "--img_log_every_steps",
-              "0", "--log_every_steps", "1", "--val_every_steps", "0", "-l",
-              str(logroot), "-n", run_name, *dots]
+              str(IMG_LOG_EVERY), "--log_every_steps", "1",
+              "--val_every_steps", "0", "-l", str(logroot), "-n", run_name,
+              *dots]
     env = ALL_KERNELS if all_kernel else {}
+
+    def run_dirs():
+        return {d for d in logroot.iterdir() if d.name.endswith(run_name)} \
+            if logroot.exists() else set()
+
+    before = run_dirs()
     out, summ, wall = run_train_cli(name, [
         *common, "--max_steps", str(steps), "--test_steps",
         str(CLI_TEST_STEPS), "--test_batches", "1"], env)
-    run_dir = [d for d in logroot.iterdir() if d.name.endswith(run_name)]
+    run_dir = run_dirs() - before
     if len(run_dir) != 1:
         raise AssertionError(f"{name}: run dirs {run_dir}")
-    run_dir = run_dir[0]
+    run_dir = run_dir.pop()
+    # the image log (when it fired): one encode and one decode (with its
+    # re-quantization) at LOG_N
+    logged = len(summ["image_log_seconds"])
+    if logged != steps // IMG_LOG_EVERY:
+        raise AssertionError(f"{name}: {logged} image logs")
     with (all_kernels() if all_kernel else contextlib.nullcontext()):
         per_step = expected_train_launches(arch, all_kernel)
-    want = {k: v * steps for k, v in per_step.items()}
+        log_want = expected_first_stage_launches(
+            arch, all_kernel, encodes=logged, decodes=logged,
+            requantizes=logged)
+    want = {k: v * steps + log_want[k] for k, v in per_step.items()}
     got = {k: v for k, v in summ["launches"].items() if k in want}
     if summ["steps"] != steps or got != want:
         raise AssertionError(f"{name}: {summ['steps']} steps, launches "
@@ -2782,23 +2834,34 @@ def train_cli_phase(card, dots, arch, label, steps, logroot, resume):
         f"{TRAIN_BATCH * len(steady) / sum(steady):.3f} img/s after the "
         f"first; loader wait share {rounded(summ['data_wait_share'], 4)}; "
         f"peak memory above the model {summ['peak_gib_above_model']:.2f} "
-        f"GiB; train-state writes {rounded(summ['checkpoint_seconds'], 2)} "
-        f"s (not step time); launches {got} ({steps} x the architecture's), "
-        f"{summ['launches']['decode_jpeg']} nvJPEG decodes; test pass DDIM "
-        f"{CLI_TEST_STEPS} at batch {TRAIN_BATCH}: {len(pngs)} PNGs, "
-        f"{test_ips} img/s")
-    if resume:
-        out, summ, wall = run_train_cli(f"{name}, resumed", [
-            *common, "--auto_resume", "True", "--max_steps", str(steps + 1),
-            "--no_test", "True"], env)
-        if f"Restored training state at step {steps} " not in out \
-                or summ["steps"] != 1 or {k: v for k, v in
-                                          summ["launches"].items()
-                                          if k in per_step} != per_step:
-            raise AssertionError(f"{name}: resume\n{out[-3000:]}")
-        log(f"{name}, resumed from last on {card}: restored step {steps}, "
-            f"one step {summ['step_seconds'][0]:.3f} s, process wall "
-            f"{wall:.1f} s, set-up {summ['setup_seconds']:.2f} s")
+        f"GiB; train state {summ['state_gib_per_rank']:.3f} GiB a rank; "
+        f"train-state writes {rounded(summ['checkpoint_seconds'], 2)} "
+        f"s (not step time); image log at step {IMG_LOG_EVERY} "
+        f"{rounded(summ['image_log_seconds'], 3)} s; launches {got} "
+        f"({steps} x the architecture's, the image log's encode and decode "
+        f"at {LOG_N} beside), {summ['launches']['decode_jpeg']} nvJPEG "
+        f"decodes; test pass DDIM {CLI_TEST_STEPS} at batch {TRAIN_BATCH}: "
+        f"{len(pngs)} PNGs, {test_ips} img/s")
+    if not resume:
+        return run_dir
+    written = cli_image_log_check(name, run_dir, dots)
+    log(f"{name}: the image log wrote {written}; inputs and captions equal "
+        f"the CLI loader's third batch's grids")
+
+    out, summ, wall = run_train_cli(f"{name}, resumed with --fsdp", [
+        *common, "--auto_resume", "True", "--max_steps", str(steps + 1),
+        "--no_test", "True", "--fsdp"], env)
+    if f"Restored training state at step {steps} " not in out \
+            or not summ["fsdp"] or summ["steps"] != 1 \
+            or {k: v for k, v in summ["launches"].items()
+                if k in per_step} != per_step:
+        raise AssertionError(f"{name}: resume with --fsdp\n{out[-3000:]}")
+    log(f"{name}, resumed with --fsdp from the replicated run's last on "
+        f"{card}: NCCL, world size {summ['world_size']}, restored step "
+        f"{steps}, one step {summ['step_seconds'][0]:.3f} s, train state "
+        f"{summ['state_gib_per_rank']:.3f} GiB a rank, peak memory above "
+        f"the model {summ['peak_gib_above_model']:.2f} GiB, process wall "
+        f"{wall:.1f} s, set-up {summ['setup_seconds']:.2f} s")
     return run_dir
 
 
@@ -3292,6 +3355,384 @@ def vg_open_images_phase(card, work):
             f"equal, pixels max {worst * 127.5:.2f} levels")
 
 
+# ---------------------------------------------------------------------------
+def tp_sites(found, n):
+    """The kernel sites a tensor-parallel rank at ``n_model = n`` runs for
+    the sites ``found`` on one process: each 3x3 conv and fused prologue
+    whose cout divides by n computes cout / n of its output channels from
+    the same input (``parallel/tp.py``); attention, GroupNorm and the VQ
+    argmin see the gathered tensors, the sites already checked. Calls that
+    took a gradient keep it."""
+    out = {name: set() for name in KERNELS}
+    out["grad"] = {name: set() for name in KERNELS}
+    for name in ("conv3x3", "conv3x3_norm_silu"):
+        for src, dst in ((found[name], out[name]),
+                         (found["grad"][name], out["grad"][name])):
+            for site in src:
+                if site[1] % n == 0:
+                    dst.add((site[0], site[1] // n) + tuple(site[2:]))
+    return out
+
+
+def first_stage_found(model):
+    """Every distinct kernel call of one all-kernel fp32 encode and decode
+    of the model's first stage at this script's batch."""
+    x = seeded_images(34)
+    with all_kernels():
+        def run():
+            z = model.encode_first_stage(x)
+            model.decode_first_stage(z)
+        return record_sites(run)
+
+
+def tp_sites_phase(step_found, stage_found):
+    """Each distinct kernel site a tensor-parallel rank at n_model 2 and 4
+    runs in the all-kernel bf16 t2i train step (forward and gradient) and
+    in the fp32 first stage (encode and decode), checked against its plain
+    version (and its gradient) unless checked before."""
+    sites = []
+    for n in TP_SIZES:
+        sites += check_sites(tp_sites(step_found, n),
+                             f"TP rank at n_model {n}: t2i train step")
+        sites += check_sites(tp_sites(stage_found, n),
+                             f"TP rank at n_model {n}: t2i first stage")
+    return sites
+
+
+def exact(name, got, want):
+    if got.shape != want.shape or not np.array_equal(got, want):
+        diff = (np.abs(got - want).max() if got.shape == want.shape
+                else f"shapes {got.shape} vs {want.shape}")
+        raise AssertionError(f"{name}: not equal ({diff})")
+
+
+def check_pngs(name, out_dir, logs, step):
+    """Each array of ``logs`` written by ImageLogger as its grid under
+    ``out_dir``: the file read back equals the grid's pixels."""
+    from frido_tpu_torch.utils import visualize as vz
+
+    for key, val in logs.items():
+        if key == "file_name":
+            continue
+        path = out_dir / f"{key}_gs-{step:06}.png"
+        exact(f"{name}: {path.name}", vz.read_png(str(path)),
+              vz.to_uint8(vz.make_grid(val, nrow=4)))
+
+
+@contextlib.contextmanager
+def plot_flags(model, **flags):
+    saved = dict(model.extra)
+    model.extra.update(flags)
+    try:
+        yield
+    finally:
+        model.extra.clear()
+        model.extra.update(saved)
+
+
+def image_logging_phase(card, model, work):
+    """``log_images`` of the full-width t2i model at LOG_N on the card,
+    written by ``ImageLogger``: at the config's flags (no sampling) the
+    inputs, the reconstruction (bit for bit the card's own encode and
+    decode), the captions drawn as text (bit for bit the host render),
+    each PNG read back equal to its grid; then with ``plot_sample`` and
+    ``plot_quantize_denoised`` at DDIM-LOG_DDIM_STEPS (eta 1, fp32 UNet),
+    the samples and their quantized decode bit for bit those of direct
+    ``sample`` + ``decode`` with the same CPU generator. Seconds per
+    logged step and launches."""
+    from frido_tpu_torch.training.image_logger import ImageLogger
+    from frido_tpu_torch.utils import visualize as vz
+
+    images = seeded((LOG_N, 256, 256, 3), 72).tanh()
+    batch = {"image": images, "caption": list(LOG_CAPTIONS),
+             "file_name": [f"{i:012d}.jpg" for i in range(LOG_N)]}
+    logger = ImageLogger(str(work), max_images=LOG_N)
+    model.eval()
+    # the first call builds the host tokenizer and the decoder's plans at
+    # this batch; the second is a logged step's time
+    _, first_secs = timed(lambda: logger.log_train(model, batch, 0))
+    zero_launches()
+    logs, secs = timed(lambda: logger.log_train(model, batch, 1))
+    launches = read_launches()
+    if set(logs) != {"inputs", "reconstruction", "conditioning",
+                     "file_name"}:
+        raise AssertionError(f"log_images at the config's flags: "
+                             f"{sorted(logs)}")
+    exact("inputs", logs["inputs"], images.cpu().numpy())
+    exact("reconstruction", logs["reconstruction"], model.decode_first_stage(
+        model.encode_first_stage(images)).float().cpu().numpy())
+    exact("conditioning", logs["conditioning"],
+          vz.log_txt_as_img((256, 256), list(LOG_CAPTIONS)))
+    check_pngs("t2i image log", work / "images" / "train", logs, 1)
+    with plot_flags(model, plot_sample=True, plot_quantize_denoised=True):
+        logs2, secs2 = timed(lambda: model.log_images(
+            batch, generator=torch.Generator().manual_seed(73), n=LOG_N,
+            ddim_steps=LOG_DDIM_STEPS, ddim_eta=1.0))
+    with torch.no_grad():
+        ctx = model.get_learned_conditioning(model.tokenize(
+            list(LOG_CAPTIONS)))
+        z = model.sample(LOG_N, context=ctx, steps=LOG_DDIM_STEPS, eta=1.0,
+                         sampler="ddim",
+                         generator=torch.Generator().manual_seed(73))
+        want = model.decode_first_stage(z).float().cpu().numpy()
+        zq = model.quantize_latent(model._scale_latent(z, invert=True))
+        want_q = model.first_stage_model.decode_interface(
+            zq).float().cpu().numpy()
+    exact("samples", logs2["samples"], want)
+    exact("samples_x0_quantized", logs2["samples_x0_quantized"], want_q)
+    if not all(np.isfinite(v).all() for k, v in logs2.items()
+               if k != "file_name"):
+        raise AssertionError("log_images gave non-finite values")
+    log(f"image logging on {card}: t2i log_images at n {LOG_N} with the "
+        f"config's flags (inputs, reconstruction, captions as text) "
+        f"{secs:.3f} s a logged step (the first call {first_secs:.3f} s), "
+        f"PNGs written by ImageLogger and read "
+        f"back equal; reconstruction bit for bit the card's encode and "
+        f"decode; the text render bit for bit the host's; launches "
+        f"{launches}; with plot_sample and plot_quantize_denoised (DDIM "
+        f"{LOG_DDIM_STEPS}, eta 1, fp32 UNet) {secs2:.3f} s, samples and "
+        f"their quantized decode bit for bit direct sample + decode")
+
+
+def layout2i_log_phase(card, model, work):
+    """``log_images`` of the full-width layout2i model at BATCH with its
+    ``objects_bbox`` conditioning drawn as boxes (the config's builder:
+    1024 tokens, the crop encoded; COCO's labels): the render bit for bit
+    ``plot_bbox_conditioning`` on the host, the PNG read back equal."""
+    from frido_tpu_torch.data.conditional_builder import (
+        ObjectsBoundingBoxConditionalBuilder)
+    from frido_tpu_torch.training.image_logger import ImageLogger
+    from frido_tpu_torch.utils import visualize as vz
+
+    builder = ObjectsBoundingBoxConditionalBuilder(
+        no_object_classes=183, no_max_objects=31, no_tokens=1024,
+        encode_crop=True, use_group_parameter=True)
+    labels = [f"category {i}" for i in range(183)]
+
+    class Dataset:
+        conditional_builders = {"objects_bbox": builder}
+
+        @staticmethod
+        def get_textual_label_for_category_no(n):
+            return labels[n]
+
+    rng = np.random.default_rng(74)
+    rows = []
+    for _ in range(BATCH):
+        row = []
+        for _ in range(int(rng.integers(2, 6))):
+            x0, y0 = rng.integers(0, 28, 2)
+            x1, y1 = rng.integers(x0 + 2, 32), rng.integers(y0 + 2, 32)
+            row += [int(rng.integers(0, 183)), int(y0 * 32 + x0),
+                    int(y1 * 32 + x1)]
+        row += [builder.none] * (93 - len(row)) + [33, 990]
+        rows.append(row)
+    images = seeded((BATCH, 256, 256, 3), 75).tanh()
+    batch = {"image": images, "objects_bbox": np.asarray(rows, np.int64)}
+    logs, secs = timed(lambda: ImageLogger(str(work), max_images=BATCH)
+                       .log_train(model, batch, 1, dataset=Dataset()))
+    want = np.stack([vz.plot_bbox_conditioning(
+        builder, row, Dataset.get_textual_label_for_category_no, (256, 256))
+        for row in batch["objects_bbox"]])
+    exact("layout2i box render", logs["conditioning"], want)
+    if not (want < 1).any():
+        raise AssertionError("layout2i box render drew nothing")
+    check_pngs("layout2i image log", work / "images" / "train", logs, 1)
+    log(f"layout2i image log on {card}: {BATCH} box renders of 2-5 boxes "
+        f"and the crop, bit for bit plot_bbox_conditioning, PNGs read back "
+        f"equal; {secs:.3f} s a logged step")
+
+
+def toy_log_phase(card):
+    """Every gallery of ``log_images`` on the toy model on the card (every
+    ``plot_*`` gate on: DDIM-4 samples, their quantized decode, the
+    diffusion and denoise rows, the progressive row of a 40-step chain),
+    the noise from a CPU generator: finite values of each key's shape.
+    The CPU tests hold these galleries to the JAX package's."""
+    cfg = toy_config()
+    cfg["params"]["timesteps"] = TOY_TIMESTEPS
+    _, gpu = toy_models(cfg)
+    batch = {"image": seeded_images(76, "cuda")[:2, ::4, ::4],
+             "caption": ["a cat", "two dogs on a mat"],
+             "file_name": ["a.jpg", "b.jpg"]}
+    with plot_flags(gpu, plot_sample=True, plot_quantize_denoised=True,
+                    plot_diffusion_rows=True, plot_denoise_rows=True,
+                    plot_progressive_rows=True):
+        logs, secs = timed(lambda: gpu.log_images(
+            batch, generator=torch.Generator().manual_seed(77), n=2,
+            ddim_steps=4))
+    want = {"inputs", "reconstruction", "conditioning", "samples",
+            "samples_x0_quantized", "diffusion_row", "denoise_row",
+            "progressive_row", "file_name"}
+    if set(logs) != want or not all(
+            np.isfinite(v).all() for k, v in logs.items()
+            if k != "file_name"):
+        raise AssertionError(f"toy log_images: {sorted(logs)}")
+    log(f"toy log_images on {card}: every gallery "
+        f"{ {k: list(v.shape) for k, v in logs.items() if k != 'file_name'} }"
+        f" finite, {secs:.2f} s")
+
+
+@contextlib.contextmanager
+def log_dir(name):
+    """A fresh directory under build/ for an image log, removed after."""
+    import shutil
+
+    work = REPO / "build" / "chip_smoke_logs" / name
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        yield work
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def snapshot(tr):
+    """A trainer's weights, EMA and Adam moments, copied on the card."""
+    opt = tr.optimizer
+    params = [p for g in opt.param_groups for p in g["params"]]
+    return {"params": [p.detach().clone() for p in tr.model.parameters()],
+            "ema": [t.clone() for t in tr.ema.shadow.values()],
+            "mu": [opt.state[p]["mu"].clone() for p in params],
+            "nu": [opt.state[p]["nu"].clone() for p in params]}
+
+
+def fsdp_phase(card, model):
+    """The full-width t2i step with ``fsdp=True`` at world size 1 against
+    the replicated step, bit for bit: FSDP_STEPS bf16 steps at the
+    config's batch from the same weights, each mode's trainer built on the
+    model, under a one-rank NCCL group, with PyTorch's deterministic
+    algorithms on (cuDNN's and the embedding's backward otherwise sum in
+    an order of their own from run to run). The replicated step runs
+    twice first: the control that the step itself repeats bit for bit."""
+    import socket
+
+    import torch.distributed as tdist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    tdist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                             rank=0, world_size=1)
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        batch = train_batch(TRAIN_BATCH, 80)
+        snaps, info = {}, {}
+        for mode in ("replicated", "replicated again", "--fsdp"):
+            model.load_state_dict(init)
+            params = [p for _, p in trainer.trainable_parameters(model)]
+            tr = trainer.DiffusionTrainer(
+                model, optim.build_optimizer(params, TRAIN_LR),
+                compute_dtype=torch.bfloat16, rank=0, world_size=1,
+                fsdp=mode == "--fsdp")
+            gen = torch.Generator()
+            secs = []
+            for i in range(FSDP_STEPS):
+                gen.manual_seed(90 + i)
+                secs.append(timed(lambda: tr.train_step(batch, gen))[1])
+            snaps[mode] = snapshot(tr)
+            info[mode] = (rounded(secs, 4), tr.state_bytes() / 2 ** 30,
+                          tr.sharding is not None)
+            del tr
+            torch.cuda.empty_cache()
+            if mode != "replicated":
+                bad = [part for part, xs in snaps[mode].items()
+                       if not all(torch.equal(x, y) for x, y in
+                                  zip(xs, snaps["replicated"][part]))]
+                if bad:
+                    raise AssertionError(f"fsdp phase: {mode} differs from "
+                                         f"the replicated step in {bad}")
+                del snaps[mode]
+        del snaps, init
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = cudnn_det
+        tdist.destroy_process_group()
+        torch.cuda.empty_cache()
+    log(f"fsdp on {card}: the t2i step at batch {TRAIN_BATCH}, bf16, "
+        f"{FSDP_STEPS} steps, world size 1 (NCCL group), deterministic "
+        f"algorithms: replicated twice bit for bit (the control), fsdp=True "
+        f"bit for bit the replicated (weights, EMA, Adam moments); step "
+        f"seconds, train state GiB a rank, sharded: {info}")
+
+
+def cli_image_log_check(name, run_dir, dots):
+    """The training CLI's image log at step IMG_LOG_EVERY: its inputs and
+    captions are the third batch of the CLI's train loader (seeded as the
+    CLI seeds it); each PNG holds that batch's grid, the reconstruction's
+    grid has the inputs' size."""
+    from frido_tpu_torch.cli.main import seed_data
+    from frido_tpu_torch.config import apply_dotlist
+    from frido_tpu_torch.utils import visualize as vz
+
+    out = run_dir / "images" / "train"
+    names = sorted(os.listdir(out))
+    want_names = sorted(f"{k}_gs-{IMG_LOG_EVERY:06}.png" for k in
+                        ("inputs", "reconstruction", "conditioning"))
+    if names != want_names:
+        raise AssertionError(f"{name}: image log wrote {names}")
+    cfg = apply_dotlist(load_yaml(str(T2I)), dots)
+    dm = instantiate_from_config(cfg["data"], device=torch.device(
+        "cuda", 0)).setup()
+    seed_data(dm, CLI_TRAIN_SEED)
+    loader, seen = dm.train_dataloader(), []
+    while len(seen) < IMG_LOG_EVERY:     # across epochs, as the CLI runs
+        it = iter(loader)
+        try:
+            for b in it:
+                seen.append(b)
+                if len(seen) == IMG_LOG_EVERY:
+                    break
+        finally:
+            it.close()
+    batch = seen[-1]
+    grid = vz.make_grid(batch["image"][:LOG_N].float().cpu().numpy(), 4)
+    exact(f"{name}: inputs PNG", vz.read_png(str(out / want_names[1])),
+          vz.to_uint8(grid))
+    text = vz.make_grid(vz.log_txt_as_img(
+        (256, 256), batch["caption"][:LOG_N]), 4)
+    exact(f"{name}: conditioning PNG", vz.read_png(str(out / want_names[0])),
+          vz.to_uint8(text))
+    rec = vz.read_png(str(out / want_names[2]))
+    if rec.shape != grid.shape or rec.std() == 0:
+        raise AssertionError(f"{name}: reconstruction PNG {rec.shape}")
+    return [n for n in names]
+
+
+def dryrun_phase(card):
+    """``tools/dryrun_multichip.py --full`` under torchrun on min(4,
+    device count) cards (NCCL): the four checks at full t2i width. With
+    one card it is not run, and a line says so."""
+    n = min(4, torch.cuda.device_count())
+    if n < 2:
+        log(f"multi-card dry run not run: {torch.cuda.device_count()} card "
+            f"on this machine (NCCL allows one rank a card; the four checks "
+            f"run on 4 gloo ranks in tests/test_torch_sharding.py)")
+        return
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(n), "-m",
+           "frido_tpu_torch.tools.dryrun_multichip", "--full"]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.Popen(cmd, cwd=str(REPO), env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            stdin=subprocess.DEVNULL, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    lines = [ln for ln in out.splitlines() if ln.startswith("dryrun")]
+    if proc.returncode != 0 or len(lines) != 4:
+        raise AssertionError(f"dry run on {n} cards: exit {proc.returncode}"
+                             f"\n{out[-3000:]}\n{err[-3000:]}")
+    for ln in lines:
+        log(f"{ln} ({n} x {card}, NCCL, --full)")
+
+
 def build_msvqgan():
     t0 = time.perf_counter()
     model = instantiate_from_config(load_yaml(str(MSVQ))["model"], seed=0)
@@ -3437,8 +3878,11 @@ def main():
     with all_kernels():
         first_stage_phase(card, model, "t2i", "all-kernel")
     mark("t2i first stage")
-    other += diffusion_sites_phase(model)
+    step_sites, step_found = diffusion_sites_phase(model)
+    other += step_sites
     mark("diffusion train step sites")
+    other += tp_sites_phase(step_found, first_stage_found(model))
+    mark("TP rank sites")
     diffusion_training_phase(card, model, "default", torch.bfloat16,
                              TRAIN_STEPS)
     with all_kernels():
@@ -3446,6 +3890,12 @@ def main():
                                  TRAIN_STEPS)
     diffusion_training_phase(card, model, "default", None, (1, 0))
     mark("t2i diffusion training")
+    fsdp_phase(card, model)
+    mark("fsdp")
+    with log_dir("t2i") as work:
+        image_logging_phase(card, model, work)
+    toy_log_phase(card)
+    mark("image logging")
     del model
     torch.cuda.empty_cache()
     model = build_msvqgan()
@@ -3476,6 +3926,9 @@ def main():
     with all_kernels():
         first_stage_phase(card, model, "layout2i", "all-kernel")
     mark("layout2i first stage")
+    with log_dir("layout2i") as work:
+        layout2i_log_phase(card, model, work)
+    mark("layout2i image log")
     del model
     torch.cuda.empty_cache()
     with clip_vocab():
@@ -3490,6 +3943,8 @@ def main():
     mark("clip-t2i sites")
     for phase, secs in data_cli_phases(card, t2i_arch).items():
         seconds[phase] = secs
+    dryrun_phase(card)
+    mark("multi-card dry run")
     for row in rows:
         path = default if row["name"] in ("flash_attention", "vq_argmin") \
             else opt_in

@@ -42,9 +42,21 @@ replays the same images with the same crops, flips and annotation
 shuffles: the loader draws the plans of every batch before the cursor
 again, without their pixels.
 
-Refused at start-up with ``NotImplementedError``: ``--fsdp`` and
-``--img_log_every_steps`` > 0 (the image logger renders text with PIL,
-which the card machine lacks); pass ``--img_log_every_steps 0``.
+``--fsdp`` shards the parameters, both AdamW moments and the EMA over the
+data-parallel ranks (``parallel/fsdp.py``, ZeRO-3 style: the parameters
+gathered before each step's forward, the mean gradients reduce-scattered
+after its backward, AdamW and the EMA on the local parts); the layout is
+data-only (no tensor parallelism), as in the JAX script. Its checkpoints
+are gathered and written whole by rank 0, so a ``--fsdp`` run's ``last``
+resumes without ``--fsdp`` and the reverse.
+
+Image logging (``training/image_logger.py``), as the JAX script does it:
+every ``--img_log_every_steps`` steps ``log_images`` of the train batch
+under the EMA weights, and at that cadence the first validation batch's,
+written by rank 0 as PNG grids under ``<logdir>/images/{train,val}/``
+(text and boxes drawn without PIL, ``utils/visualize.py``); a logging
+error is printed and the run goes on. The summary's
+``image_log_seconds`` holds each logged step's seconds (not step time).
 """
 
 from __future__ import annotations
@@ -69,6 +81,7 @@ from frido_tpu_torch.config import instantiate_from_config, load_configs
 from frido_tpu_torch.io import checkpoint as ckpt_io
 from frido_tpu_torch.parallel import dist
 from frido_tpu_torch.training import optim, trainer as trainer_mod
+from frido_tpu_torch.training.image_logger import ImageLogger
 from frido_tpu_torch.utils.visualize import save_image
 
 
@@ -122,7 +135,9 @@ def get_parser() -> argparse.ArgumentParser:
                         "size; any other value must equal it)")
     p.add_argument("--accumulate_grad_batches", type=int, default=1)
     p.add_argument("--img_log_every_steps", type=int, default=1000,
-                   help="image logging is not ported: pass 0")
+                   help="log_images of the train batch (and the first val "
+                        "batch) every N steps under the EMA weights, PNG "
+                        "grids in logdir/images (0: off)")
     p.add_argument("--bf16_train", type=str2bool, default=False, nargs="?",
                    const=True,
                    help="bf16 UNet and encode with fp32 weights and "
@@ -131,7 +146,11 @@ def get_parser() -> argparse.ArgumentParser:
                    nargs="?", const=True,
                    help="store the Adam first moment in bf16")
     p.add_argument("--fsdp", type=str2bool, default=False, nargs="?",
-                   const=True, help="sharded state: not ported")
+                   const=True,
+                   help="shard the parameters, Adam moments and EMA over "
+                        "the data-parallel ranks (ZeRO-3 style; "
+                        "parallel/fsdp.py); the numerics of replicated "
+                        "data parallelism")
     p.add_argument("--uncond_gen_mode", type=str2bool, default=False,
                    nargs="?", const=True,
                    help="the test pass's seed is seed + rank")
@@ -264,20 +283,6 @@ def run_device(args, world: dist.World) -> torch.device:
     return torch.device("cuda", world.local_rank)
 
 
-def _refuse(args) -> None:
-    if args.fsdp:
-        raise NotImplementedError(
-            "--fsdp (the sharded train state) is not ported yet (ROADMAP.md "
-            "section 1, 'Sharded scale-out'); data parallelism runs under "
-            "torchrun")
-    if args.img_log_every_steps > 0:
-        raise NotImplementedError(
-            "image logging (ImageLogger, log_images) is not ported yet "
-            "(ROADMAP.md section 1, 'Image logging'): it renders text with "
-            "PIL, which the card machine lacks; pass --img_log_every_steps "
-            "0")
-
-
 _RUN_LOGDIR = {"path": "", "fresh": False}
 
 
@@ -350,7 +355,6 @@ def _scale_by_std(model, images: torch.Tensor, world: dist.World):
 
 
 def train(args, unknown) -> Optional[Dict[str, Any]]:
-    _refuse(args)
     t_start = time.perf_counter()
     world = dist.init_from_env(args.device or "cuda")
     device = run_device(args, world)
@@ -438,7 +442,7 @@ def _train(args, unknown, world, device, t_start):
     tr = trainer_mod.DiffusionTrainer(
         model, opt, use_ema=True, remat=use_remat,
         compute_dtype=torch.bfloat16 if args.bf16_train else None,
-        rank=world.rank, world_size=world.world_size)
+        rank=world.rank, world_size=world.world_size, fsdp=args.fsdp)
 
     sf_path = os.path.join(ckptdir, "scale_factors.json")
     start_step = 0
@@ -460,8 +464,9 @@ def _train(args, unknown, world, device, t_start):
                 model.scale_factors = np.asarray(json.load(f), np.float32)
     elif getattr(model, "scale_by_std", False):
         first = peek_first_batch(data, args.seed)
-        sf = _scale_by_std(model, batch_to_arrays(model, first)["image"],
-                           world)
+        with tr.weights():
+            sf = _scale_by_std(model, batch_to_arrays(model, first)["image"],
+                               world)
         if world.main:
             with open(sf_path, "w") as f:
                 json.dump(sf.tolist(), f)
@@ -481,19 +486,48 @@ def _train(args, unknown, world, device, t_start):
         except ImportError:
             print("wandb unavailable; falling back to CSV logging")
 
+    img_logger = ImageLogger(logdir, every_steps=args.img_log_every_steps)
+    image_log_seconds = []
+
+    def log_images(batch, step, split):
+        """Rank 0 writes ``log_images`` of ``batch`` under the EMA
+        weights (every rank enters the weights: a collective under
+        ``--fsdp``); a logging error is printed and the run goes on."""
+        t0 = time.perf_counter()
+        with tr.weights(ema=True):
+            if world.main:
+                try:
+                    img_logger.log_train(
+                        model, batch, step, split=split,
+                        dataset=data.datasets.get(
+                            "validation" if split == "val" else "train"),
+                        generator=torch.Generator(device=device).manual_seed(
+                            args.seed))
+                except Exception as e:  # logging must never kill a run
+                    print(f"{split} image logging failed: {e!r}")
+        image_log_seconds.append(time.perf_counter() - t0)
+
     stop_requested = {"save": False}
     signal.signal(signal.SIGUSR1, lambda *_: stop_requested.update(save=True))
     signal.signal(signal.SIGUSR2, _usr2_debugger)
 
     ckpt_seconds = []
 
+    def full_state():
+        """The train state on rank 0 (None elsewhere); every rank gathers
+        under sharded state."""
+        if tr.sharding is None and not world.main:
+            return None
+        return ckpt_io.train_state(tr)
+
     def save(step):
         """Rank 0 writes the train state; returns the seconds it took."""
+        t0 = time.perf_counter()
+        state = full_state()
         if not world.main:
             return 0.0
-        t0 = time.perf_counter()
         ckpt_io.save_train_state(
-            ckptdir, step, ckpt_io.train_state(tr),
+            ckptdir, step, state,
             meta={"epoch": cursor["epoch"],
                   "batch_in_epoch": cursor["batch"]})
         ckpt_seconds.append(time.perf_counter() - t0)
@@ -501,10 +535,13 @@ def _train(args, unknown, world, device, t_start):
         return ckpt_seconds[-1]
 
     best_monitor = {"value": float("inf")}
+    # val images at the image-log cadence, not at every validation pass
+    last_val_img = {"step": -10 ** 9}
 
     def validate(step):
         """val/loss and val/loss_ema over the val split (``--val_batches``
-        of it); a ``best`` checkpoint on val/loss_ema."""
+        of it); a ``best`` checkpoint on val/loss_ema; the first val
+        batch's images at the image-log cadence."""
         losses, losses_ema = [], []
         for i, vbatch in enumerate(data.val_dataloader()):
             if 0 < args.val_batches <= i:
@@ -515,6 +552,11 @@ def _train(args, unknown, world, device, t_start):
             losses.append(float(tr.eval_step(arrays, gen)))
             gen.set_state(state)
             losses_ema.append(float(tr.eval_step(arrays, gen, ema=True)))
+            if (i == 0 and img_logger.every_steps > 0
+                    and step - last_val_img["step"]
+                    >= img_logger.every_steps):
+                last_val_img["step"] = step
+                log_images(vbatch, step, "val")
         if not losses:
             return
         val_loss = sum(losses) / len(losses)
@@ -526,9 +568,9 @@ def _train(args, unknown, world, device, t_start):
                   f"val/loss_ema {val_loss_ema:.4f}")
         if val_loss_ema < best_monitor["value"]:
             best_monitor["value"] = val_loss_ema
+            state = full_state()
             if world.main:
-                ckpt_io.save_train_state(ckptdir, step,
-                                         ckpt_io.train_state(tr), tag="best")
+                ckpt_io.save_train_state(ckptdir, step, state, tag="best")
                 print(f"New best val/loss_ema {val_loss_ema:.4f}; "
                       "saved 'best' checkpoint")
 
@@ -585,6 +627,8 @@ def _train(args, unknown, world, device, t_start):
                 t0 = time.perf_counter()
                 if args.val_every_steps and step % args.val_every_steps == 0:
                     validate(step)
+                if img_logger.should_log(step):
+                    log_images(batch, step, "train")
                 if args.ckpt_every_steps and step % args.ckpt_every_steps == 0:
                     save(step)
                 if stop_requested["save"]:
@@ -603,7 +647,9 @@ def _train(args, unknown, world, device, t_start):
                "step_seconds": step_seconds, "data_wait_share": waits,
                "global_batch": batch_size, "world_size": world.world_size,
                "device": str(device), "launches": launches,
-               "checkpoint_seconds": ckpt_seconds}
+               "checkpoint_seconds": ckpt_seconds,
+               "image_log_seconds": image_log_seconds, "fsdp": args.fsdp,
+               "state_gib_per_rank": tr.state_bytes() / 2 ** 30}
     if device.type == "cuda":
         sync()
         summary["peak_gib_above_model"] = (
@@ -615,7 +661,7 @@ def _train(args, unknown, world, device, t_start):
     if not args.no_test:
         # the post-fit test pass, under the EMA weights
         print("testing time")
-        with tr.ema.scope():
+        with tr.weights(ema=True):
             summary["test"] = run_test(args, model, data, logdir, world,
                                        device)
     return summary

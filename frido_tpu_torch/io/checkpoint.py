@@ -18,6 +18,14 @@ states, the step). :func:`restore_train_state` puts one back into a
 trainer. A params-only
 checkpoint (:func:`save_params`) is ``<path>/params.pt``.
 
+Sharded training (``DiffusionTrainer.sharding``: tensor parallelism,
+FSDP): :func:`train_state` gathers every part into the full tensors on
+every rank (a collective: every rank calls it) and returns the state on
+rank 0 alone, so rank 0 writes the format above; ``load_state`` gives each
+rank its parts of the full tensors again. The JAX package saves
+``jax.device_get(state)``, full arrays, alike: an ``--fsdp`` run's
+``last`` resumes without ``--fsdp``, and the reverse.
+
 Not carried over: the JAX package's legacy orbax layout whose EMA shadowed
 the whole model (``checkpoint.py:97-111``); the port reads no orbax
 checkpoint.
@@ -70,31 +78,43 @@ def restore_raw(path: str) -> Dict[str, Any]:
     raise FileNotFoundError(f"no {STATE_FILE} or {PARAMS_FILE} in {path}")
 
 
-def train_state(trainer) -> Dict[str, Any]:
+def train_state(trainer) -> Optional[Dict[str, Any]]:
     """A ``DiffusionTrainer``'s state as one dict of CPU tensors, in the
-    layout ``DiffusionTrainer.load_state`` takes; a ``VQGANTrainer``'s
-    (``VQGANTrainer.state``) likewise."""
+    layout ``DiffusionTrainer.load_state`` takes (full tensors; under
+    sharded state every rank calls it and rank 0 alone gets the dict,
+    the others None); a ``VQGANTrainer``'s (``VQGANTrainer.state``)
+    likewise."""
     if hasattr(trainer, "state"):
         return _cpu(trainer.state())
     opt = trainer.optimizer
     names = {id(p): n for n, p in trainer.model.named_parameters()}
     params = [p for g in opt.param_groups for p in g["params"]]
     states = {names[id(p)]: opt._state(p) for p in params}
+    sharding = getattr(trainer, "sharding", None)
+
+    def full(part: Dict[str, torch.Tensor], prefix: str = ""):
+        if sharding is None:
+            return part
+        return {k: sharding.full(prefix + k, v) for k, v in part.items()}
+
     acc = ({n: st["acc"] for n, st in states.items()}
            if opt.every_k > 1 else None)
-    return _cpu({
-        "params": trainer.model.state_dict(),
-        "ema": dict(trainer.ema.shadow),
+    state = {
+        "params": full(trainer.model.state_dict()),
+        "ema": full(dict(trainer.ema.shadow), "model."),
         "ema_updates": trainer.ema.num_updates,
         "step": trainer.step,
         "adam": {
             "count": opt.count,
-            "mu": {n: st["mu"] for n, st in states.items()},
-            "nu": {n: st["nu"] for n, st in states.items()},
+            "mu": full({n: st["mu"] for n, st in states.items()}),
+            "nu": full({n: st["nu"] for n, st in states.items()}),
             "mini_step": opt.mini_step if acc is not None else None,
-            "acc": acc,
+            "acc": None if acc is None else full(acc),
         },
-    })
+    }
+    if sharding is not None and sharding.layout.rank != 0:
+        return None
+    return _cpu(state)
 
 
 def _save_state(path: str, state: Dict[str, Any]) -> None:

@@ -32,7 +32,18 @@ Checkpoints: ``tokenize`` runs the cond stage's host tokenizer;
 ``load_torch_checkpoint`` loads a reference Lightning ``.ckpt`` in place
 (``ignore_keys`` dropped first, the scalar ``scale_factor`` made a vector
 under ``adopted_scale_factor``), as ``models/frido.py:344-362`` of the JAX
-package. Not ported yet: pixel-space DDPM and the image-log galleries.
+package. Not ported yet: pixel-space DDPM.
+
+Image logs (``models/frido.py:605-770`` of the JAX package):
+``log_images`` gives the inputs, their reconstruction, the conditioning
+drawn as an image (``utils/visualize.py``: captions and ``objects`` label
+lists as text, ``objects_bbox`` as boxes) and, behind the config's
+``plot_*`` gates (``extra``), samples (DDIM, or PLMS at eta 0), their
+codebook-quantized decode, the diffusion and denoise galleries
+(``log_rows``) and the progressive gallery of the full-T chain
+(``log_progressive_rows``); every array NHWC float32 in [-1, 1] on the
+host. Their random numbers come from the caller's generator through
+``samplers._noise``, so a test can feed the JAX package's draws.
 """
 
 from __future__ import annotations
@@ -422,7 +433,6 @@ class FridoDiffusion(nn.Module):
         self.scale_factors = np.asarray(factors, np.float32)
         return self.scale_factors
 
-    @torch.no_grad()
     def sample(self, batch_size: int, context=None, uncond_context=None,
                steps: int = 200, eta: float = 1.0,
                guidance_scale: float = 1.0, sampler: str = "plms",
@@ -442,13 +452,27 @@ class FridoDiffusion(nn.Module):
         the update math and schedule stay fp32; the SPADE tables are
         computed once per stage (per UNet call under tiling).
         """
+        return self._sample(batch_size, context, uncond_context, steps, eta,
+                            guidance_scale, sampler, x_T, x_init,
+                            compute_dtype, cfg_mode, generator)
+
+    @torch.no_grad()
+    def _sample(self, batch_size, context=None, uncond_context=None,
+                steps=200, eta=1.0, guidance_scale=1.0, sampler="plms",
+                x_T=None, x_init=None, compute_dtype=None,
+                cfg_mode="batched", generator=None,
+                keep_intermediates=False):
+        """:meth:`sample`; ``keep_intermediates`` returns ``(z, [per
+        sampled stage, its steps' composites])`` (the image log's
+        galleries)."""
         shape = (batch_size, self.image_size, self.image_size, self.channels)
         cfg = samplers.SamplerConfig(
             schedule=self.schedule, num_steps=steps, eta=eta,
             guidance_scale=guidance_scale,
             embed_dim_list=tuple(self.embed_dim_list),
             specify_channels=tuple(self.specify_channels),
-            num_stage=self.num_stage, kind=sampler, cfg_mode=cfg_mode)
+            num_stage=self.num_stage, kind=sampler, cfg_mode=cfg_mode,
+            keep_intermediates=keep_intermediates)
         cd = compute_dtype
         if cd is not None:
             context = None if context is None else context.to(cd)
@@ -475,3 +499,148 @@ class FridoDiffusion(nn.Module):
                                x_T=on_device(x_T), x_init=on_device(x_init),
                                generator=generator, device=self.device,
                                stage_invariants=stage_invariants)
+
+    # ------------------------------------------------------------------
+    # image logs (models/frido.py:605-770)
+    # ------------------------------------------------------------------
+    def _host(self, t: torch.Tensor) -> np.ndarray:
+        return t.float().cpu().numpy()
+
+    def _images(self, batch, n: int) -> torch.Tensor:
+        image = batch["image"]
+        if not isinstance(image, torch.Tensor):
+            image = torch.from_numpy(np.asarray(image))
+        return image[:n].to(self.device, torch.float32)
+
+    def _tokens(self, batch, n: int) -> np.ndarray:
+        key = self.cond_stage_key
+        cond = batch[key] if key in batch else batch
+        if isinstance(cond, list):
+            cond = cond[:n]
+        return np.asarray(self.tokenize(cond))[:n]
+
+    @torch.no_grad()
+    def log_images(self, batch, generator: Optional[torch.Generator] = None,
+                   n: int = 8, ddim_steps: int = 200, ddim_eta: float = 1.0,
+                   sample_flag: bool = True, dataset=None) -> Dict[str, Any]:
+        """``inputs``, ``reconstruction``, ``conditioning`` and (behind the
+        ``plot_*`` gates) ``samples``, ``samples_x0_quantized``,
+        ``diffusion_row``, ``denoise_row``, ``progressive_row`` of the
+        first ``n`` samples of ``batch``, and their ``file_name``."""
+        from frido_tpu_torch.utils import visualize as vz
+
+        log: Dict[str, Any] = {}
+        x = self._images(batch, n)
+        log["inputs"] = self._host(x)
+        if "file_name" in batch:
+            log["file_name"] = batch["file_name"][:n]
+        z = self.encode_first_stage(x)
+        log["reconstruction"] = self._host(self.decode_first_stage(z))
+
+        ctx = None
+        key = self.cond_stage_key
+        if self.cond_stage_model is not None:
+            tokens = self._tokens(batch, n)
+            ctx = self.get_learned_conditioning(tokens)
+            wh = (x.shape[2], x.shape[1])
+            if key == "caption":
+                log["conditioning"] = vz.log_txt_as_img(
+                    wh, batch["caption"][:n])
+            elif key == "objects" and dataset is not None:
+                none = dataset.conditional_builders["objects"].none
+                labels = [[dataset.get_textual_label_for_category_no(int(t))
+                           for t in row if t != none] for row in tokens]
+                log["conditioning"] = vz.log_txt_as_img(wh, labels)
+            elif key == "objects_bbox" and dataset is not None:
+                builder = dataset.conditional_builders["objects_bbox"]
+                log["conditioning"] = np.stack([
+                    vz.plot_bbox_conditioning(
+                        builder, row,
+                        dataset.get_textual_label_for_category_no, wh)
+                    for row in tokens])
+
+        gate = self.extra.get
+        if sample_flag and gate("plot_sample", True):
+            samples = self.sample(
+                x.shape[0], context=ctx, steps=ddim_steps, eta=ddim_eta,
+                sampler="ddim" if ddim_eta > 0 else "plms",
+                generator=generator)
+            log["samples"] = self._host(self.decode_first_stage(samples))
+            if gate("plot_quantize_denoised", False):
+                zq = self.quantize_latent(
+                    self._scale_latent(samples, invert=True))
+                log["samples_x0_quantized"] = self._host(
+                    self.first_stage_model.decode_interface(zq))
+        if sample_flag and (gate("plot_diffusion_rows", False)
+                            or gate("plot_denoise_rows", False)):
+            rows = self.log_rows(batch, generator=generator,
+                                 ddim_steps=min(ddim_steps, 50))
+            if gate("plot_diffusion_rows", False):
+                log["diffusion_row"] = rows["diffusion_row"]
+            if gate("plot_denoise_rows", False):
+                log["denoise_row"] = rows["denoise_row"]
+        if sample_flag and gate("plot_progressive_rows", False):
+            log["progressive_row"] = self.log_progressive_rows(
+                ctx, generator, n_row=min(2, x.shape[0]))
+        return log
+
+    def _decode_intermediates_row(self, inters, final, stride: int
+                                  ) -> np.ndarray:
+        """Every ``stride``-th composite of each sampled stage and the
+        final latent, decoded in one batched call, as one grid a sample
+        (the galleries' shared tail)."""
+        from frido_tpu_torch.utils import visualize as vz
+
+        frames = [si[::stride] for si in inters] + [final[None]]
+        stacked = torch.cat(frames, dim=0)
+        k, b = stacked.shape[:2]
+        imgs = self._host(self.decode_first_stage(
+            stacked.reshape((k * b,) + tuple(stacked.shape[2:]))))
+        row = np.swapaxes(imgs.reshape((k, b) + imgs.shape[1:]), 0, 1)
+        return np.stack([vz.make_grid(r, nrow=k) for r in row])
+
+    @torch.no_grad()
+    def log_progressive_rows(self, ctx, generator=None,
+                             n_row: int = 2) -> np.ndarray:
+        """The full-T ancestral chain's x0 composites decoded every
+        ``timesteps // 5`` steps (``frido.py:1576-1582``)."""
+        if ctx is not None:
+            ctx = ctx[:n_row]
+        final, inters = self._sample(n_row, context=ctx, eta=1.0,
+                                     sampler="vanilla", generator=generator,
+                                     keep_intermediates=True)
+        return self._decode_intermediates_row(
+            inters, final, max(self.timesteps // 5, 1))
+
+    @torch.no_grad()
+    def log_rows(self, batch, generator=None, n_row: int = 2,
+                 ddim_steps: int = 50, log_every_t: int = 10
+                 ) -> Dict[str, np.ndarray]:
+        """``diffusion_row``: the latent noised every ``log_every_t``
+        timesteps in each stage's window (coarse stage last), decoded;
+        ``denoise_row``: PLMS's composites decoded
+        (``frido.py:1526-1583``)."""
+        from frido_tpu_torch.utils import visualize as vz
+
+        z = self.encode_first_stage(self._images(batch, n_row))
+        noise = samplers._noise(generator, tuple(z.shape), 1.0, self.device)
+        snaps = []
+        for s in range(self.num_stage - 1, -1, -1):
+            for t_val in range(0, self.timesteps, max(log_every_t, 1)):
+                t = torch.full((z.shape[0],), t_val, dtype=torch.long,
+                               device=self.device)
+                zn = self.q_sample_stage(z, t, s, noise)
+                snaps.append(self._host(self.decode_first_stage(zn)))
+        row = np.stack(snaps, axis=1)
+        log = {"diffusion_row": np.stack(
+            [vz.make_grid(r, nrow=len(snaps)) for r in row])}
+        ctx = None
+        if self.cond_stage_model is not None:
+            ctx = self.get_learned_conditioning(self._tokens(batch, n_row))
+        final, inters = self._sample(n_row, context=ctx, steps=ddim_steps,
+                                     eta=0.0, sampler="plms",
+                                     generator=generator,
+                                     keep_intermediates=True)
+        log["denoise_row"] = self._decode_intermediates_row(
+            inters, final, max(ddim_steps // 5, 1))
+        return log

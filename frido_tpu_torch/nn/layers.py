@@ -18,6 +18,15 @@ under ``FRIDO_CONV_MODE=pallas`` or ``pallas_fused``, and its
 ``fused_norm`` route (the ResBlock prologue folded into the conv) runs the
 prologue variant. Elsewhere both keep their plain PyTorch form.
 
+Tensor parallelism (``parallel/tp.py``): each layer declares where its
+weight's JAX axes went (``jax_axes``). A layer whose weight
+``tp.shard_module_`` cut to this rank's output channels (vocab rows for
+``Embed``) holds its :class:`~frido_tpu_torch.parallel.tp.Shard` in
+``tp``: it computes its own channels (the same kernels at cout / n_model)
+with its slice of the replicated bias and gathers them along the channel
+axis; ``Embed`` looks up its own rows and all-reduces, and
+:meth:`Embed.table` gives the whole table. ``tp`` is None otherwise.
+
 Initialisers follow the JAX package too: convs and dense layers draw
 U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (flax ``variance_scaling(1/3, fan_in,
 uniform)``), biases start at 0, ``zero_init`` layers at 0, embeddings from
@@ -35,6 +44,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from frido_tpu_torch.ops.cuda import dispatch
+from frido_tpu_torch.parallel import tp as tp_ops
 from frido_tpu_torch.ops.cuda.conv import conv3x3, conv3x3_norm_silu
 from frido_tpu_torch.ops.cuda.norm import group_norm, group_norm_plain
 
@@ -46,7 +56,12 @@ def _uniform_(t: torch.Tensor, bound: float, gen: torch.Generator) -> None:
 
 class _Linearish(nn.Module):
     """Shared parameter handling for Conv2d, ConvTranspose2d, Conv1d and
-    Dense."""
+    Dense: ``jax_axes`` (the JAX kernel axis of each torch dim of the
+    weight), ``out_dim`` (the output's channel axis) and ``tp`` (the
+    weight's model shard, or None)."""
+
+    tp: Optional[tp_ops.Shard] = None
+    out_dim = 1
 
     def _make(self, shape, fan_in: int, bias: bool, zero_init: bool, device,
               features: Optional[int] = None):
@@ -68,8 +83,18 @@ class _Linearish(nn.Module):
                 self.bias.zero_()
 
     def _wb(self, dtype):
-        b = None if self.bias is None else self.bias.to(dtype)
+        b = self.bias
+        if b is not None and self.tp is not None:
+            b = tp_ops.bias(b, self.tp)
+        b = None if b is None else b.to(dtype)
         return self.weight.to(dtype), b
+
+    def _enter(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.tp is None else tp_ops.enter(x, self.tp)
+
+    def _leave(self, y: torch.Tensor) -> torch.Tensor:
+        return y if self.tp is None else tp_ops.gather(y, self.out_dim,
+                                                       self.tp)
 
 
 class Conv2d(_Linearish):
@@ -78,6 +103,8 @@ class Conv2d(_Linearish):
     ``fused_norm`` (the arguments of :meth:`GroupNorm.fused_args`) asks for
     GroupNorm -> SPADE modulation -> SiLU -> this conv as one kernel; only
     a 3x3 / stride-1 / pad-1 conv takes it."""
+
+    jax_axes = (3, 2, 0, 1)       # HWIO
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 0, bias: bool = True,
@@ -95,15 +122,19 @@ class Conv2d(_Linearish):
 
     def forward(self, x: torch.Tensor,
                 fused_norm: Optional[dict] = None) -> torch.Tensor:
+        x = self._enter(x)
         w, b = self._wb(x.dtype)
         if fused_norm is None and not (self.is_3x3_same
                                        and dispatch.use_conv_kernel()):
-            return F.conv2d(x, w, b, self.stride, self.padding)
+            return self._leave(F.conv2d(x, w, b, self.stride, self.padding))
         if not self.is_3x3_same:
             raise ValueError("fused_norm needs a 3x3 / stride-1 / pad-1 conv")
         if fused_norm is not None:
-            return conv3x3_norm_silu(x, w, b, **fused_norm)
-        return conv3x3(x, w, b)
+            if self.tp is not None:
+                fused_norm = {k: self._enter(v) if isinstance(
+                    v, torch.Tensor) else v for k, v in fused_norm.items()}
+            return self._leave(conv3x3_norm_silu(x, w, b, **fused_norm))
+        return self._leave(conv3x3(x, w, b))
 
 
 class ConvTranspose2d(_Linearish):
@@ -113,6 +144,8 @@ class ConvTranspose2d(_Linearish):
     The JAX package computes it in XLA, outside any Pallas kernel, so it
     stays on ``F.conv_transpose2d`` in every configuration. It initialises
     as the flax layer does: U(+-1/sqrt(k*k*Cin)), bias 0."""
+
+    jax_axes = (2, 3, 0, 1)       # kernel_t is HWIO
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 4,
                  stride: int = 2, padding: int = 1, bias: bool = True,
@@ -125,12 +158,16 @@ class ConvTranspose2d(_Linearish):
         self.padding = padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self._enter(x)
         w, b = self._wb(x.dtype)
-        return F.conv_transpose2d(x, w, b, self.stride, self.padding)
+        return self._leave(F.conv_transpose2d(x, w, b, self.stride,
+                                              self.padding))
 
 
 class Conv1d(_Linearish):
     """torch-style Conv1d on [N, C, T]."""
+
+    jax_axes = (2, 1, 0)          # kIO
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 1,
                  padding: int = 0, bias: bool = True, zero_init: bool = False,
@@ -141,12 +178,16 @@ class Conv1d(_Linearish):
         self.padding = padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self._enter(x)
         w, b = self._wb(x.dtype)
-        return F.conv1d(x, w, b, 1, self.padding)
+        return self._leave(F.conv1d(x, w, b, 1, self.padding))
 
 
 class Dense(_Linearish):
     """torch-style Linear over the last axis."""
+
+    jax_axes = (1, 0)             # [I, O]
+    out_dim = -1
 
     def __init__(self, cin: int, cout: int, bias: bool = True,
                  zero_init: bool = False, device=None):
@@ -154,12 +195,19 @@ class Dense(_Linearish):
         self._make((cout, cin), cin, bias, zero_init, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self._enter(x)
         w, b = self._wb(x.dtype)
-        return F.linear(x, w, b)
+        return self._leave(F.linear(x, w, b))
 
 
 class Embed(nn.Module):
-    """torch-style Embedding; ``weight`` [num, dim]."""
+    """torch-style Embedding; ``weight`` [num, dim] (the JAX
+    ``embedding``, as-is); under tensor parallelism its rows are split
+    over the model ranks."""
+
+    jax_axes = (0, 1)
+    embedding = True
+    tp: Optional[tp_ops.Shard] = None
 
     def __init__(self, num_embeddings: int, features: int, device=None):
         super().__init__()
@@ -171,7 +219,15 @@ class Embed(nn.Module):
             self.weight.normal_(0.0, 0.02, generator=gen)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return tp_ops.embed(ids.long(), self.weight, self.tp)
         return F.embedding(ids.long(), self.weight)
+
+    def table(self) -> torch.Tensor:
+        """The whole table (gathered from the model ranks when split)."""
+        if self.tp is None:
+            return self.weight
+        return tp_ops.gather(self.weight, 0, self.tp)
 
 
 class _Affine(nn.Module):

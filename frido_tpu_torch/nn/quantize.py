@@ -35,7 +35,7 @@ class VectorQuantizer(nn.Module):
         self.embedding = Embed(n_e, e_dim, device=device)
 
     def forward(self, z: torch.Tensor) -> Quantized:
-        z_q, idx = vq_lookup(z, self.embedding.weight)
+        z_q, idx = vq_lookup(z, self.embedding.table())
         z32, zq32 = z.float(), z_q.float()
         codebook_term = (zq32.detach() - z32).square().mean()
         commit_term = (zq32 - z32.detach()).square().mean()
@@ -91,7 +91,7 @@ class GumbelQuantize(nn.Module):
             if self.straight_through:
                 hard = F.one_hot(idx, self.n_e).to(soft.dtype)
                 one_hot = hard + soft - soft.detach()
-        z_q = one_hot @ self.embed.weight
+        z_q = one_hot @ self.embed.table()
         probs = torch.softmax(logits.float(), dim=-1)
         kl = self.kl_weight * (probs * torch.log(probs * self.n_e + 1e-10)
                                ).sum(-1).mean()

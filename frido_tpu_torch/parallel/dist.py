@@ -14,12 +14,14 @@ gradients summed by XLA. The port runs one process a card, launched by
 - :func:`rank_seed` is a rank's sampling seed, ``seed + rank`` (the JAX
   package's ``fold_rng_per_device``, and ``seed + shard_idx`` of its
   sampling script);
-- :func:`all_reduce_mean_` averages tensors over the ranks in buckets (one
-  collective per bucket, not per tensor), for the gradients;
+- :func:`all_reduce_mean_` averages tensors over the ranks (or a
+  subgroup of them) in buckets (one collective per bucket, not per
+  tensor), for the gradients;
 - :func:`broadcast_` gives every rank rank 0's parameters and buffers.
 
-Tensor parallelism (``tp.py``) and sharded state (``fsdp.py``) are not
-ported.
+On top of this process-group layer, ``mesh.py`` lays the ranks out as the
+JAX package's data x model mesh, ``tp.py`` shards layers over the model
+ranks and ``fsdp.py`` shards the train state over the data ranks.
 """
 
 from __future__ import annotations
@@ -80,13 +82,14 @@ def _active() -> bool:
 
 @torch.no_grad()
 def all_reduce_mean_(tensors: Iterable[torch.Tensor],
-                     bucket_bytes: int = BUCKET_BYTES) -> None:
-    """Each tensor replaced by its mean over the ranks, in place: the
-    tensors are packed, in order, into flat buckets of up to
-    ``bucket_bytes`` of one dtype, one ``all_reduce`` each."""
-    if not _active() or dist.get_world_size() == 1:
+                     bucket_bytes: int = BUCKET_BYTES, group=None) -> None:
+    """Each tensor replaced by its mean over the ranks of ``group`` (all
+    ranks by default), in place: the tensors are packed, in order, into
+    flat buckets of up to ``bucket_bytes`` of one dtype, one
+    ``all_reduce`` each."""
+    if not _active() or dist.get_world_size(group) == 1:
         return
-    n = dist.get_world_size()
+    n = dist.get_world_size(group)
     bucket: List[torch.Tensor] = []
     size = 0
 
@@ -95,7 +98,7 @@ def all_reduce_mean_(tensors: Iterable[torch.Tensor],
         if not bucket:
             return
         flat = torch.cat([t.reshape(-1) for t in bucket])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         flat.div_(n)
         offset = 0
         for t in bucket:

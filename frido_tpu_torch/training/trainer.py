@@ -26,6 +26,19 @@ calls (``dist.all_reduce_mean_``): the step calls
 ``DistributedDataParallel``'s hooks would never fire. The logs are
 averaged over the ranks too. Every rank then takes the same AdamW update
 and the same EMA update, so weights and EMA stay equal on every rank.
+
+Sharded training (``n_model`` > 1, ``fsdp``): the ranks form the JAX
+package's data x model layout (``parallel/mesh.py``); the model is
+sharded by ``parallel/fsdp.shard_model_`` before the EMA and AdamW's
+moments are made, so both live on the same parts as the parameters. The
+batch and the draws are the data index's rows (model ranks of a data row
+see the same rows); a tensor-parallel layer all-gathers its output
+channels in the forward (``parallel/tp.py``); with ``fsdp`` the step
+gathers the parameters before the forward and reduce-scatters the mean
+gradients after the backward (``Sharding.reduce_grads_``); the gradient
+means and the logs run over the data ranks. :meth:`weights` is the model
+with its whole (or EMA) parameters in place, for an eval, a sample or the
+image log; ``io/checkpoint.train_state`` gathers the full state.
 """
 
 from __future__ import annotations
@@ -38,7 +51,9 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
-from frido_tpu_torch.parallel import dist
+from frido_tpu_torch.parallel import dist, mesh
+from frido_tpu_torch.parallel.fsdp import (MIN_SHARD_SIZE, resident_bytes,
+                                           shard_model_)
 from frido_tpu_torch.training.ema import EMA
 from frido_tpu_torch.training.optim import AdamW
 
@@ -76,24 +91,58 @@ class DiffusionTrainer:
     recomputes the diffusion loss's activations in the backward
     (``torch.utils.checkpoint``); ``compute_dtype`` runs the encode and the
     UNet in that dtype with fp32 weights, optimizer state and loss math;
-    ``rank`` of ``world_size`` makes the step data-parallel.
+    ``rank`` of ``world_size`` makes the step data-parallel, ``n_model``
+    model ranks a data row make it tensor-parallel, ``fsdp`` shards the
+    train state over the data ranks (leaves of ``min_size`` elements or
+    more). Every rank builds it on a replicated model, before any step.
     """
 
     def __init__(self, model: nn.Module, optimizer: AdamW,
                  use_ema: bool = True, remat: bool = False,
                  compute_dtype: Optional[torch.dtype] = None,
-                 rank: int = 0, world_size: int = 1):
+                 rank: int = 0, world_size: int = 1, n_model: int = 1,
+                 fsdp: bool = False, min_size: int = MIN_SHARD_SIZE):
         self.model = model
         self.rank = rank
         self.world_size = world_size
+        self.layout = mesh.make_layout(world_size, rank, n_model)
         self.optimizer = optimizer
         self.use_ema = use_ema
         self.remat = remat
         self.compute_dtype = compute_dtype
         model.first_stage_model.requires_grad_(False)
         model.train()
-        self.ema = EMA(model.model)
+        self.sharding = (shard_model_(model, self.layout, fsdp, min_size)
+                         if fsdp or world_size > 1 else None)
+        gather = None
+        if self.sharding is not None and self.sharding.data_dims:
+            def gather(name, t, sharding=self.sharding):
+                return sharding.data_full("model." + name, t)
+        self.ema = EMA(model.model, gather=gather)
         self.step = 0
+
+    def weights(self, ema: bool = False):
+        """The model with its data-gathered parameters in place (the EMA
+        denoiser with ``ema``) inside the block; every rank enters it
+        under sharded state."""
+        stack = contextlib.ExitStack()
+        if self.sharding is not None:
+            stack.enter_context(self.sharding.gathered())
+        if ema:
+            stack.enter_context(self.ema.scope())
+        return stack
+
+    def state_bytes(self) -> int:
+        """Bytes of the train state this rank holds at rest: the model's
+        parameters, AdamW's moments (and accumulator) and the EMA."""
+        opt = [t for st in self.optimizer.state.values()
+               for t in st.values() if isinstance(t, torch.Tensor)]
+        return resident_bytes(list(self.model.parameters()) + opt
+                              + list(self.ema.shadow.values()))
+
+    def _local(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        return (full if self.sharding is None
+                else self.sharding.local(name, full))
 
     @torch.no_grad()
     def load_state(self, state: Dict[str, object]) -> None:
@@ -105,12 +154,14 @@ class DiffusionTrainer:
             return {k: v if isinstance(v, torch.Tensor)
                     else torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
-        self.model.load_state_dict(tensors(state["params"]), strict=True)
+        self.model.load_state_dict(
+            {k: self._local(k, v) for k, v in tensors(
+                state["params"]).items()}, strict=True)
         ema = tensors(state["ema"])
         if set(ema) != set(self.ema.shadow):
             raise KeyError("the EMA state does not cover the denoiser")
         for k, s in self.ema.shadow.items():
-            s.copy_(ema[k])
+            s.copy_(self._local("model." + k, ema[k]))
         self.ema.num_updates = state["ema_updates"]
         adam, opt = state["adam"], self.optimizer
         mu, nu = tensors(adam["mu"]), tensors(adam["nu"])
@@ -123,10 +174,10 @@ class DiffusionTrainer:
                            "parameters")
         for p in params:
             st, n = opt._state(p), names[id(p)]
-            st["mu"].copy_(mu[n])
-            st["nu"].copy_(nu[n])
+            st["mu"].copy_(self._local(n, mu[n]))
+            st["nu"].copy_(self._local(n, nu[n]))
             if acc is not None:
-                st["acc"].copy_(acc[n])
+                st["acc"].copy_(self._local(n, acc[n]))
         opt.count = adam["count"]
         opt.mini_step = adam["mini_step"] or 0
         self.step = state["step"]
@@ -140,22 +191,22 @@ class DiffusionTrainer:
         return image, tokens
 
     def _draws(self, batch: int, generator):
-        """This rank's rows of the global batch's t and noise."""
-        m = self.model
-        n = batch * self.world_size
+        """This data index's rows of the global batch's t and noise."""
+        m, lay = self.model, self.layout
+        n = batch * lay.n_data
         shape = (n, m.image_size, m.image_size, m.channels)
         t, noise = _draw(generator, n, m.timesteps, shape, m.device)
-        if self.world_size == 1:
+        if lay.n_data == 1:
             return t, noise
-        rows = dist.rank_rows(n, self.rank, self.world_size)
+        rows = dist.rank_rows(n, lay.data_index, lay.n_data)
         return t[rows], noise[rows]
 
     def _mean_over_ranks(self, logs: Dict[str, torch.Tensor]):
-        if self.world_size == 1:
+        if self.layout.n_data == 1:
             return logs
         keys = sorted(logs)
         flat = torch.stack([logs[k].detach().float() for k in keys])
-        dist.all_reduce_mean_([flat])
+        dist.all_reduce_mean_([flat], group=self.layout.data_group)
         return dict(zip(keys, flat.unbind()))
 
     def _context(self, tokens):
@@ -172,6 +223,8 @@ class DiffusionTrainer:
         m, cd = self.model, self.compute_dtype
         image, tokens = self._batch(batch, cd)
         t, noise = self._draws(image.shape[0], generator)
+        if self.sharding is not None:
+            self.sharding.gather_()
         z = m.encode_first_stage(image).float()
         ctx = self._context(tokens)
 
@@ -184,13 +237,9 @@ class DiffusionTrainer:
         else:
             loss, logs = diffusion_loss(z, ctx, t, noise)
         loss.backward()
-        if self.world_size > 1:
-            params = [p for g in self.optimizer.param_groups
-                      for p in g["params"]]
-            for p in params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            dist.all_reduce_mean_([p.grad for p in params])
+        if self.sharding is not None:
+            self.sharding.reduce_grads_(
+                [p for g in self.optimizer.param_groups for p in g["params"]])
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         if self.use_ema:
@@ -208,7 +257,7 @@ class DiffusionTrainer:
         m = self.model
         image, tokens = self._batch(batch)
         t, noise = self._draws(image.shape[0], generator)
-        with self.ema.scope() if ema else contextlib.nullcontext():
+        with self.weights(ema):
             z = m.encode_first_stage(image)
             loss, _ = m.training_loss(z, self._context(tokens), t, noise)
         return self._mean_over_ranks({"loss": loss})["loss"]

@@ -30,8 +30,11 @@ COCO-2017 tree, copied here).
   ``io/jax_weights.py``, the port's draws fed the JAX step's: the loss
   and its logs within 3e-4, ``init_scale_by_std`` within 1e-5 relative
   (``tests/test_torch_training.py``'s tolerances).
-- ``--fsdp`` and ``--img_log_every_steps 5`` raise ``NotImplementedError``;
-  without ``--device`` and CUDA the CLI raises.
+- ``--fsdp`` and ``--img_log_every_steps`` (at 1) run in process: the
+  ``--fsdp`` run writes its checkpoint, the image-logging run writes the
+  train and val grids of ``log_images`` (``inputs``, ``reconstruction``,
+  ``conditioning``) under ``images/``; without ``--device`` and CUDA the
+  CLI raises.
 """
 
 import csv
@@ -397,13 +400,35 @@ def test_first_batch_and_step_equal_jax(workspace, monkeypatch):
         assert abs(float(logs[k]) - float(v)) <= LOSS_ATOL, k
 
 
-@pytest.mark.parametrize("flag", [["--fsdp"], ["--img_log_every_steps", "5"]])
-def test_refusals(workspace, flag, tmp_path):
+@pytest.mark.parametrize("flag", [["--fsdp"], ["--img_log_every_steps", "1"]])
+def test_flags_run(workspace, flag, tmp_path):
+    """The two flags the CLI refused before run: 2 steps in process, one
+    validation batch at step 2; with image logging every step, the train
+    grids of both steps and the val grids of step 2 are written."""
     _, cfg_path, _ = workspace
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["-b", str(cfg_path), "-t", "-l", str(tmp_path), "--device",
-                  "cpu", "--img_log_every_steps", "0", *flag])
-    assert not os.listdir(tmp_path)
+    summ = cli.main(["-b", str(cfg_path), "-t", "-l", str(tmp_path), "-n",
+                     "tiny", "--device", "cpu", "--img_log_every_steps", "0",
+                     "--max_steps", "2", "--val_every_steps", "2",
+                     "--val_batches", "1", "--no_test", "True",
+                     "--log_every_steps", "1", *flag])
+    assert summ["steps"] == 2
+    run = _run_dir(tmp_path)
+    assert json.load(open(os.path.join(run, "checkpoints",
+                                       "last.json")))["step"] == 2
+    if flag[0] == "--fsdp":
+        assert summ["fsdp"] and not summ["image_log_seconds"]
+        return
+    assert len(summ["image_log_seconds"]) == 3
+    keys = ("inputs", "reconstruction", "conditioning")
+    want = {"train": [f"{k}_gs-{s:06}.png" for k in keys for s in (1, 2)],
+            "val": [f"{k}_gs-000002.png" for k in keys]}
+    for split, names in want.items():
+        d = os.path.join(run, "images", split)
+        assert sorted(os.listdir(d)) == sorted(names), split
+        for name in names:
+            img = read_png(os.path.join(d, name))
+            # a grid of 2 images of 32^2, 4 a row, 2 pixels apart
+            assert img.shape == (36, 70, 3) and img.std() > 0, name
 
 
 def test_cli_runs_on_the_card_by_default(workspace, monkeypatch, tmp_path):
