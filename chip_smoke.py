@@ -163,7 +163,24 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    each config's batch size, each sample card against CPU;
 18. with two cards or more, ``tools/dryrun_multichip.py --full`` under
    torchrun on min(4, count) of them (NCCL): the four checks of the JAX
-   dry run at full t2i width; with one card a line says it was not run.
+   dry run at full t2i width; with one card a line says it was not run;
+19. (run before 11) the rest of the denoiser, two models built from
+   dicts at the t2i UNet's widths (no config sets these options):
+   ddpm-pixel, a pixel-space DDPM at 64^2 x 3 (GroupNorm ResBlocks with
+   resblock up/down and scale-shift norm, AttentionBlocks over 1024, 256
+   and 64 tokens in heads of 32): every distinct kernel call of an
+   all-kernel DDIM step, a bf16 train step at batch 32 and a 1000-class
+   UNet call through ``DiffusionWrapper("adm")``, checked forward and
+   gradient as in 6 (flash at [48, 1024, 32] bf16 and the fused prologue
+   without SPADE among them); in each QKV order one fp32 UNet call card
+   against CPU, DDIM-20 at batch 4 and two bf16 train steps at batch 32
+   in both configurations, launches held to the architecture's; then
+   t2i-ablations, the t2i config with stage experts, mscond and position
+   embeddings: the kernel calls of an all-kernel pass and of a bf16 train
+   step, checked alike, one fp32 UNet call a stage card against CPU,
+   PLMS-20 (CFG 1.5) with the decode at batch 4 and one bf16 train step
+   at batch 32 in both configurations; img/s, step seconds and peak
+   memory above the model, beside the card.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit; before that, one ``{"kernels": [...]}``
@@ -211,9 +228,11 @@ from frido_tpu_torch.losses.lpips import LPIPS  # noqa: E402
 from frido_tpu_torch.losses.vqperceptual import (  # noqa: E402
     VQLPIPSWithDiscriminator)
 from frido_tpu_torch.models.msvqgan import MSFPNVQModel  # noqa: E402
-from frido_tpu_torch.nn.layers import Conv2d, GroupNorm, init_module_  # noqa: E402,E501
+from frido_tpu_torch.nn.layers import (  # noqa: E402
+    Conv1d, Conv2d, GroupNorm, init_module_, seed_init_)
+from frido_tpu_torch.models.frido import DiffusionWrapper  # noqa: E402
 from frido_tpu_torch.nn.pyunet import (  # noqa: E402
-    ResBlock, UNetDownsample, UNetUpsample)
+    AttentionBlock, PyUNetModel, ResBlock, UNetDownsample, UNetUpsample)
 from frido_tpu_torch.nn.quantize import VectorQuantizer  # noqa: E402
 from frido_tpu_torch.nn.transformer import SpatialTransformer  # noqa: E402
 from frido_tpu_torch.nn.vqgan import AttnBlock  # noqa: E402
@@ -518,6 +537,46 @@ FSDP_STEPS = 2
 DRYRUN_TIMEOUT = 900
 VG_IMAGES, OI_IMAGES = 24, 8
 
+# The rest of the denoiser, at full width from dicts: no config
+# file sets these options. ddpm-pixel: a pixel-space DDPM (no first stage)
+# at 64^2 x 3 with the t2i unet_config's widths (192 x [1, 2, 3, 5], 2
+# ResBlocks a level, attention at 32^2, 16^2 and 8^2 with heads of 32:
+# 1024 tokens x 12 heads, 256 x 18, 64 x 30), GroupNorm ResBlocks with
+# resblock up/down and scale-shift norm, the plain AttentionBlock in both
+# QKV orders; DDIM-20 (eta 0) at batch 4 in both configurations, two bf16
+# training steps at the t2i batch of 32, one UNet call with 1000 class ids
+# (use_embed) through DiffusionWrapper("adm") at batch 4. t2i-ablations:
+# the t2i config with stage experts, mscond and position embeddings;
+# PLMS-20, CFG 1.5, batch 4 with the decode in both configurations, one
+# bf16 training step at batch 32. One fp32 UNet call of each model (each
+# order, each stage) card against CPU within FULL_UNET_RTOL of the CPU
+# output's largest magnitude: fp32 sums of up to 9 x 1920 terms through
+# some 40 convs and the attentions, in another order (TF32 off).
+_T2I_PARAMS = _T2I_CFG["model"]["params"]
+PIXEL_UNET = dict(
+    {k: v for k, v in _T2I_PARAMS["unet_config"]["params"].items()
+     if k not in ("split_embed_dim_list", "context_dim",
+                  "transformer_depth")},
+    image_size=64, in_channels=3, out_channels=3, use_split_head=False,
+    use_SPADE_norm=False, use_spatial_transformer=False, num_stage=1,
+    resblock_updown=True, use_scale_shift_norm=True)
+PIXEL_STEPS = 20
+PIXEL_TRAIN_STEPS = 2
+PIXEL_CLASSES = 1000
+ABLATIONS = dict(use_stage_expert=True, use_mscond=True, use_pos_embed=True)
+ABLATION_STEPS = 20
+FULL_UNET_RTOL = 1e-3
+# sites these paths must reach: flash over the pixel
+# UNet's 1024 tokens (12 heads of 32 at batch 4) and the fused prologue
+# without SPADE at its first ResBlock
+PIXEL_NAMED_SITES = (
+    ("flash_attention", (BATCH * 12, 1024, 1024, 32, torch.bfloat16)),
+    ("smalls_attention", (BATCH * 18, 256, 256, 32, torch.bfloat16)),
+    ("smalls_attention", (BATCH * 30, 64, 64, 32, torch.bfloat16)),
+    ("conv3x3_norm_silu", ((BATCH, 192, 64, 64), 192, torch.bfloat16,
+                           False, 32, 1e-5)),
+)
+
 
 def log(*parts):
     print(*parts, flush=True)
@@ -555,14 +614,14 @@ def seeded(shape, seed, dtype=torch.float32, device="cuda"):
 
 def randomize_zero_init_(model, seed):
     """Give every zero-initialised conv a seeded U(-1/sqrt(fan_in), ...)
-    init, else the UNet's eps-hat and its SpatialTransformers' outputs
-    are trivially 0."""
+    init, else the UNet's eps-hat and its SpatialTransformers' and
+    AttentionBlocks' outputs are trivially 0."""
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(seed)
     n = 0
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, Conv2d) and mod.zero_init:
+            if isinstance(mod, (Conv2d, Conv1d)) and mod.zero_init:
                 bound_ = 1.0 / math.sqrt(mod.fan_in)
                 mod.weight.uniform_(-bound_, bound_, generator=gen)
                 n += 1
@@ -816,11 +875,10 @@ def conv3x3_norm_silu_site(shape, cout, dtype, spade, groups, eps):
     """The fused GroupNorm -> (SPADE) -> SiLU -> 3x3 conv of x ``shape``
     against its plain version. No single library call computes the fused
     op: library_ms is None; F.conv2d of the conv alone (no prologue) on
-    the same shape is printed beside it. Its tolerance is fixed for bf16,
-    the dtype of every fused site."""
-    if dtype != torch.bfloat16:
-        raise AssertionError(f"conv3x3_norm_silu in {dtype}: no tolerance "
-                             f"fixed")
+    the same shape is printed beside it. In bf16 the prologue's output is
+    rounded before the conv (FUSED_BF16_ATOL_RMS); in fp32 (the
+    t2i-ablations UNet after its first position-embedded transformer) it
+    is not, and the conv's tolerance holds (CONV_ATOL_RMS)."""
     x, w, b, ns, nb, g, bt = fused_operands(shape, cout, dtype, spade, 60)
     args = (x, w, b, ns, nb, groups, eps, g, bt)
     got = conv3x3_norm_silu(*args)
@@ -828,9 +886,10 @@ def conv3x3_norm_silu_site(shape, cout, dtype, spade, groups, eps):
     up = (lambda t: None if t is None else t.float())
     want = conv3x3_norm_silu_plain(x.float(), w.float(), b.float(), ns, nb,
                                    groups, eps, up(g), up(bt))
+    atol = FUSED_BF16_ATOL_RMS if dtype == torch.bfloat16 else CONV_ATOL_RMS
     err, tol = check_close(
         f"conv3x3_norm_silu {dtype} {list(shape)}->{cout}", got, want,
-        FUSED_BF16_ATOL_RMS * rms(want), dtype)
+        atol * rms(want), dtype)
     ms = cuda_ms(lambda: conv3x3_norm_silu(*args))
     plain_ms = cuda_ms(lambda: conv3x3_norm_silu_plain(*args))
     alone_ms = cuda_ms(lambda: F.conv2d(x, w, b, 1, 1))
@@ -842,7 +901,8 @@ def conv3x3_norm_silu_site(shape, cout, dtype, spade, groups, eps):
            + (10 if spade else 8) * x.numel())
     nbytes = conv_bytes(shape, cout, itemsize) + 8 * cin + (
         2 * x.numel() * itemsize if spade else 0)
-    bounded = bound(ops, PEAK_BF16_FLOPS, nbytes)
+    bounded = (bound(ops, PEAK_BF16_FLOPS, nbytes) if dtype == torch.bfloat16
+               else matmul_bound(ops, dtype, nbytes)[:2])
     split = conv_plan(*shape, cout, itemsize, True, spade).split > 1
     launches = "statistics, pack, conv" + (", reduce" if split else "")
     log(f"conv3x3_norm_silu {dtype} x {list(shape)} -> {cout} spade "
@@ -1096,6 +1156,14 @@ def check_sites(found, label):
     return sites
 
 
+def check_named_sites(found, named, label):
+    """Raise unless every (kernel, site) of ``named`` is among ``found``."""
+    for name, site in named:
+        if site not in found[name]:
+            raise AssertionError(f"{label} made no {name} call at {site}: "
+                                 f"{sorted(found[name], key=str)}")
+
+
 def encode_sites_phase(model, label):
     """Every distinct kernel call of one all-kernel ``encode_first_stage``
     at this script's batch, each checked as in ``check_sites``."""
@@ -1113,10 +1181,7 @@ def layout2i_sites_phase(model):
     tolerances above. Returns one "other sites" entry per site."""
     with all_kernels():
         found = record_sites(lambda: sampling_pass(model, PATHS["layout2i"]))
-    for name, site in L2I_NAMED_SITES:
-        if site not in found[name]:
-            raise AssertionError(f"the layout2i pass made no {name} call at "
-                                 f"{site}: {sorted(found[name], key=str)}")
+    check_named_sites(found, L2I_NAMED_SITES, "the layout2i pass")
     found["flash_attention"].add(L2I_CHUNK_FLASH)
     found["vq_argmin"].add(L2I_CHUNK_VQ)
     return check_sites(found, "layout2i sampling")
@@ -1129,10 +1194,7 @@ def clip_sites_phase(found):
     among them the cross-attention over one key, and that cross-attention
     at the unguided batch; each against its plain version unless checked
     before."""
-    for name, site in CLIP_NAMED_SITES:
-        if site not in found[name]:
-            raise AssertionError(f"the clip-t2i CLI made no {name} call at "
-                                 f"{site}: {sorted(found[name], key=str)}")
+    check_named_sites(found, CLIP_NAMED_SITES, "the clip-t2i CLI")
     for name, site in CLIP_UNGUIDED_SITES:
         found[name].add(site)
     return check_sites(found, "clip-t2i sampling")
@@ -1496,17 +1558,20 @@ def unet_calls(model, sampler, steps, cfg_batched=False):
 
 
 def unet_tokens(model):
-    """Tokens of each SpatialTransformer's self-attention in one UNet call,
-    walked from the latent size through the UNet's down- and upsamples."""
+    """Tokens of each SpatialTransformer's (or AttentionBlock's)
+    self-attention in one UNet call, walked from the latent size through
+    the UNet's down- and upsamples (resampling ResBlocks included)."""
     side = model.image_size
     tokens = []
     for _, layers in model.model.diffusion_model._trunk():
         for _, mod in layers:
-            if isinstance(mod, UNetDownsample):
+            if isinstance(mod, UNetDownsample) or (
+                    isinstance(mod, ResBlock) and mod.down):
                 side //= 2
-            elif isinstance(mod, UNetUpsample):
+            elif isinstance(mod, UNetUpsample) or (
+                    isinstance(mod, ResBlock) and mod.up):
                 side *= 2
-            elif isinstance(mod, SpatialTransformer):
+            elif isinstance(mod, (SpatialTransformer, AttentionBlock)):
                 tokens.append(side * side)
     return tokens
 
@@ -3755,6 +3820,298 @@ def build_gan_loss():
     return loss
 
 
+def pixel_config(new_order):
+    """The ddpm-pixel model's config (``frido.models.diffusion.frido.DDPM``,
+    no first stage, the t2i config's schedule)."""
+    p = _T2I_PARAMS
+    return {"target": "frido.models.diffusion.frido.DDPM", "params": dict(
+        channels=3, image_size=64, timesteps=p["timesteps"],
+        linear_start=p["linear_start"], linear_end=p["linear_end"],
+        unet_config={"target": p["unet_config"]["target"],
+                     "params": dict(PIXEL_UNET,
+                                    use_new_attention_order=new_order)})}
+
+
+def ablations_config():
+    cfg = copy.deepcopy(_T2I_CFG["model"])
+    cfg["params"]["unet_config"]["params"].update(ABLATIONS)
+    return cfg
+
+
+def unet_card_vs_cpu(name, unet, params, x, t, context=None, stage=0,
+                     y=None):
+    """One fp32 UNet call on the card against the same weights on the CPU
+    (plain versions); returns the error relative to the CPU output's
+    largest magnitude."""
+    cpu = PyUNetModel(**params, device="cpu").eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in unet.state_dict().items()})
+    with torch.no_grad():
+        got = unet(x, t, context, stage, y=y).cpu()
+        want = cpu(*(None if a is None else a.cpu() for a in (x, t, context)),
+                   stage, y=None if y is None else y.cpu())
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item() / scale
+    if not (scale > 1e-2 and err <= FULL_UNET_RTOL):
+        raise AssertionError(f"{name}: card vs CPU {err} of {scale} > "
+                             f"{FULL_UNET_RTOL}")
+    log(f"{name}: one fp32 UNet call card vs CPU, max error {err:.3e} of "
+        f"the output's largest magnitude {scale:.3f} (tol {FULL_UNET_RTOL})")
+    return err
+
+
+def measured(run):
+    """``run()`` in the current configuration with every count set to 0
+    just before and read just after: (its result, launches, seconds, peak
+    memory above what was allocated before, GiB)."""
+    zero_launches()
+    (out, secs), peak = peak_above(lambda: timed(run))
+    return out, read_launches(), secs, peak
+
+
+def pixel_launches(model, calls, all_kernel):
+    """Each kernel's launches in ``calls`` ddpm-pixel UNet calls: each
+    AttentionBlock's attention routed by its tokens; all-kernel, per
+    call, a fused prologue and then a GroupNorm (scale-shift's, no SiLU)
+    and a 3x3 conv in each ResBlock that keeps its size, two GroupNorm +
+    SiLU kernels and two 3x3 convs in each resampling one (the resample
+    sits between its norm and its conv), a GroupNorm in each
+    AttentionBlock and in the out head, the stem and out-head convs."""
+    unet = model.model.diffusion_model
+    want = {name: 0 for name in KERNELS}
+    route_attention(want, [(tok, tok, calls) for tok in unet_tokens(model)])
+    if all_kernel:
+        res = [m for m in unet.modules() if isinstance(m, ResBlock)]
+        n_resample = sum(m.up or m.down for m in res)
+        n_attn = count(unet, AttentionBlock)
+        want["conv3x3_norm_silu"] = (len(res) - n_resample) * calls
+        want["group_norm"] = (len(res) + n_resample + n_attn + 1) * calls
+        want["conv3x3"] = (len(res) + n_resample + 2) * calls
+    return want
+
+
+def pixel_train_steps(card, model, name):
+    """PIXEL_TRAIN_STEPS bf16 steps at the t2i batch of 32 on 64^2 images
+    (the latent itself); step seconds, img/s, peak memory above the
+    model, the launches of one step."""
+    tr = diffusion_trainer(model, torch.bfloat16)
+    batch = {"image": seeded((TRAIN_BATCH, 64, 64, 3), 19).tanh()}
+    gen = torch.Generator().manual_seed(20)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    logs, first = timed(lambda: tr.train_step(batch, gen))
+    launches = read_launches()
+    secs = [first] + timed_steps(lambda: tr.train_step(batch, gen),
+                                 PIXEL_TRAIN_STEPS - 1)
+    peak = (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+    loss = logs["loss"].item()
+    if not math.isfinite(loss):
+        raise AssertionError(f"{name}: loss {loss}")
+    log(f"{name} on {card}: bf16, batch {TRAIN_BATCH}, loss {loss:.5f}; "
+        f"step seconds {[round(x, 4) for x in secs]}, "
+        f"{TRAIN_BATCH * len(secs) / sum(secs):.3f} img/s; peak device "
+        f"memory above the model {peak:.2f} GiB; launches per step "
+        f"{launches}")
+    del tr
+    torch.cuda.empty_cache()
+    return launches
+
+
+def adm_wrapper(unet):
+    """DiffusionWrapper("adm") around a ddpm-pixel UNet with 1000 class ids
+    (use_embed), seeded on the card."""
+    cfg = {"target": _T2I_PARAMS["unet_config"]["target"],
+           "params": dict(PIXEL_UNET, num_classes=PIXEL_CLASSES,
+                          use_embed=True)}
+    wrapper = DiffusionWrapper(cfg, "adm", device="cuda")
+    seed_init_(wrapper, 21, torch.device("cuda"))
+    randomize_zero_init_(wrapper, 22)
+    return wrapper.eval()
+
+
+def adm_call(wrapper):
+    x = seeded((BATCH, 3, 64, 64), 23, torch.bfloat16)
+    t = torch.full((BATCH,), 500, device="cuda")
+    y = torch.randint(0, PIXEL_CLASSES, (BATCH,), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(
+                          24))
+    with torch.no_grad():
+        out = wrapper(x, t, c_crossattn=[y])
+    if tuple(out.shape) != (BATCH, 3, 64, 64) or not bool(
+            torch.isfinite(out).all()):
+        raise AssertionError(f"adm UNet call gave {tuple(out.shape)}, "
+                             f"finite {bool(torch.isfinite(out).all())}")
+    return out
+
+
+def ddpm_pixel_phase(card):
+    """ddpm-pixel: every distinct kernel call of one all-kernel
+    DDIM step, one bf16 train step at batch 32 and one adm UNet call,
+    checked (forward, and gradient where it takes one) as in
+    ``check_sites``; in each QKV order the fp32 UNet card against CPU,
+    DDIM-20 at batch 4 and the bf16 training steps in both configurations
+    (img/s, launches held to the architecture's, peak memory); the adm
+    call. Returns the sites' "other sites" entries."""
+    t0 = time.perf_counter()
+    model = instantiate_from_config(pixel_config(False), seed=0)
+    randomize_zero_init_(model, 1)
+    unet = model.model.diffusion_model
+    log(f"ddpm-pixel model: {sum(p.numel() for p in model.parameters())} "
+        f"parameters, {count(unet, ResBlock)} ResBlocks, "
+        f"{count(unet, AttentionBlock)} AttentionBlocks over "
+        f"{unet_tokens(model)} tokens, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    wrapper = adm_wrapper(unet)
+    gen = lambda: torch.Generator(device="cuda").manual_seed(25)  # noqa: E731
+
+    def ddim(steps):
+        return model.sample(BATCH, steps=steps, eta=0.0, sampler="ddim",
+                            compute_dtype=torch.bfloat16, generator=gen())
+
+    with all_kernels():
+        found = record_sites(lambda: (ddim(1), adm_call(wrapper)))
+        tr = diffusion_trainer(model, torch.bfloat16)
+        batch = {"image": seeded((TRAIN_BATCH, 64, 64, 3), 26).tanh()}
+        grads = record_sites(lambda: tr.train_step(
+            batch, torch.Generator().manual_seed(27)), grad=True)
+        del tr
+        torch.cuda.empty_cache()
+    for name in KERNELS:
+        found[name] |= grads[name]
+    found["grad"] = grads["grad"]
+    check_named_sites(found, PIXEL_NAMED_SITES, "the ddpm-pixel pass")
+    sites = check_sites(found, "ddpm-pixel")
+
+    x = seeded((2, 3, 64, 64), 28)
+    t = torch.tensor([17, 803], device="cuda")
+    for new_order in (False, True):
+        order = "new" if new_order else "legacy"
+        if new_order:
+            model = instantiate_from_config(pixel_config(True), seed=0)
+            randomize_zero_init_(model, 1)
+            unet = model.model.diffusion_model
+        unet_card_vs_cpu(f"ddpm-pixel ({order} QKV order)", unet,
+                         dict(PIXEL_UNET, use_new_attention_order=new_order),
+                         x, t)
+        for label in ("default", "all-kernel"):
+            with (all_kernels() if label == "all-kernel"
+                  else contextlib.nullcontext()):
+                img, launches, secs, peak = measured(
+                    lambda: ddim(PIXEL_STEPS))
+                want = pixel_launches(model, PIXEL_STEPS,
+                                      label == "all-kernel")
+            if tuple(img.shape) != (BATCH, 64, 64, 3) or not bool(
+                    torch.isfinite(img).all()) or img.std().item() < 1e-4:
+                raise AssertionError(f"ddpm-pixel DDIM: {tuple(img.shape)}")
+            if launches != want:
+                raise AssertionError(f"ddpm-pixel DDIM launches {launches}"
+                                     f", expected {want}")
+            log(f"ddpm-pixel DDIM-{PIXEL_STEPS} ({order} QKV order, {label})"
+                f" on {card}: batch {BATCH}, bf16 UNet, {secs:.3f} s, "
+                f"{BATCH / secs:.4f} img/s, peak device memory above the "
+                f"model {peak:.2f} GiB, image std {img.std().item():.4f}, "
+                f"launches {launches}")
+        for label in ("default", "all-kernel"):
+            with (all_kernels() if label == "all-kernel"
+                  else contextlib.nullcontext()):
+                launches = pixel_train_steps(
+                    card, model, f"ddpm-pixel training ({order} QKV order, "
+                    f"{label})")
+                # one UNet forward a step; the backward launches nothing
+                want = pixel_launches(model, 1, label == "all-kernel")
+            if launches != want:
+                raise AssertionError(f"ddpm-pixel training ({label}) "
+                                     f"launches {launches}, expected {want}")
+    zero_launches()
+    with torch.no_grad():
+        _, adm_s = timed(lambda: adm_call(wrapper))
+    log(f"ddpm-pixel adm UNet call on {card}: {PIXEL_CLASSES} class ids "
+        f"(Embed), batch {BATCH}, bf16, {adm_s * 1e3:.2f} ms, launches "
+        f"{read_launches()}")
+    del model, wrapper, unet
+    torch.cuda.empty_cache()
+    return sites
+
+
+def t2i_ablations_phase(card):
+    """t2i-ablations: every distinct kernel call of one all-kernel
+    pass (conditioning, both stages' UNet calls on their expert trunks with
+    the mscond branch and position embeddings, decode) and of one bf16
+    train step at batch 32, checked as in ``check_sites``; one fp32 UNet
+    call a stage card against CPU; PLMS-20 (CFG 1.5) with the decode at
+    batch 4 in both configurations; one bf16 train step at batch 32.
+    Returns the sites' "other sites" entries."""
+    t0 = time.perf_counter()
+    model = instantiate_from_config(ablations_config(), seed=0)
+    randomize_zero_init_(model, 1)
+    torch.cuda.synchronize()
+    unet = model.model.diffusion_model
+    log(f"t2i-ablations model: {sum(p.numel() for p in model.parameters())}"
+        f" parameters, built in {time.perf_counter() - t0:.2f} s")
+    with all_kernels():
+        found = record_sites(lambda: sampling_pass(model, PATHS["t2i"]))
+        tr = diffusion_trainer(model, torch.bfloat16)
+        batch = train_batch(TRAIN_BATCH, 29)
+        grads = record_sites(lambda: tr.train_step(
+            batch, torch.Generator().manual_seed(30)), grad=True)
+        del tr, batch
+        torch.cuda.empty_cache()
+    for name in KERNELS:
+        found[name] |= grads[name]
+    found["grad"] = grads["grad"]
+    sites = check_sites(found, "t2i-ablations")
+
+    params = ablations_config()["params"]["unet_config"]["params"]
+    x = seeded((1, 8, 32, 32), 31)
+    t = torch.tensor([311], device="cuda")
+    with torch.no_grad():
+        ctx = model.get_learned_conditioning(np.random.default_rng(32)
+                                             .integers(0, 30522, (1, 77)))
+    for stage in (0, 1):
+        unet_card_vs_cpu(f"t2i-ablations stage {stage}", unet, params, x, t,
+                         ctx, stage)
+    path = PATHS["t2i"]
+    for label in ("default", "all-kernel"):
+        with (all_kernels() if label == "all-kernel"
+              else contextlib.nullcontext()):
+            (img, z, secs), launches, _, peak = measured(
+                lambda: drive_main_path(model, path, 0, ABLATION_STEPS))
+            check_images(img, f"t2i-ablations {label}")
+            want = {"flash_attention", "vq_argmin"} | (
+                set(KERNELS) if label == "all-kernel" else set())
+            if not all(launches[k] > 0 for k in want):
+                raise AssertionError(f"t2i-ablations {label} launches "
+                                     f"{launches}")
+            total = sum(secs.values())
+            log(f"t2i-ablations PLMS-{ABLATION_STEPS} ({label}) on {card}: "
+                f"batch {BATCH}, CFG {GUIDANCE} sequential, bf16 UNet: cond "
+                f"{secs['cond']:.3f} s, sample {secs['sample']:.3f} s, "
+                f"decode {secs['decode']:.3f} s, {BATCH / total:.4f} img/s;"
+                f" peak device memory above the model {peak:.2f} GiB; "
+                f"launches {launches}")
+            zero_launches()
+            tr = diffusion_trainer(model, torch.bfloat16)
+            batch = train_batch(TRAIN_BATCH, 33)
+            (logs, step_s), step_peak = peak_above(lambda: timed(
+                lambda: tr.train_step(batch, torch.Generator().manual_seed(
+                    34))))
+            launches = read_launches()
+            loss = logs["loss"].item()
+            if not math.isfinite(loss):
+                raise AssertionError(f"t2i-ablations training loss {loss}")
+            log(f"t2i-ablations training ({label}) on {card}: one bf16 "
+                f"step at batch {TRAIN_BATCH}, {step_s:.3f} s (the first, "
+                f"with the EMA's and AdamW's state made), loss {loss:.5f}, "
+                f"peak device memory above the model {step_peak:.2f} GiB, "
+                f"launches {launches}")
+            del tr, batch
+            torch.cuda.empty_cache()
+    del model, unet
+    torch.cuda.empty_cache()
+    return sites
+
+
 def build_main_model(config):
     t0 = time.perf_counter()
     model = instantiate_from_config(load_yaml(str(config))["model"], seed=0)
@@ -3941,6 +4298,10 @@ def main():
     torch.cuda.empty_cache()
     other += clip_sites_phase(found)
     mark("clip-t2i sites")
+    other += ddpm_pixel_phase(card)
+    mark("ddpm pixel")
+    other += t2i_ablations_phase(card)
+    mark("t2i ablations")
     for phase, secs in data_cli_phases(card, t2i_arch).items():
         seconds[phase] = secs
     dryrun_phase(card)

@@ -2,12 +2,12 @@
 
 YAML configs written against the original torch code name targets such as
 ``frido.models.diffusion.frido.FridoDiffusion``; the alias table maps the
-ones the port builds onto port classes (the models, the conditioning
-encoders, the VQ-GAN loss, the LR schedulers, the COCO, Visual Genome,
-VG-cocostyle and OpenImages datasets and the data module), so the configs
-under ``configs/frido/`` and ``configs/msvqgan/`` read unmodified.
-:func:`load_configs` merges YAML files
-left to right and applies ``a.b.c=value`` dot-list overrides on top, as
+ones the port builds onto port classes (the models, the pixel-space
+``DDPM`` included, the conditioning encoders, the VQ-GAN loss, the LR
+schedulers, the COCO, Visual Genome, VG-cocostyle and OpenImages datasets
+and the data module), so the configs under ``configs/frido/`` and
+``configs/msvqgan/`` read unmodified. :func:`load_configs` merges YAML
+files left to right and applies ``a.b.c=value`` dot-list overrides on top, as
 the CLIs take them.
 """
 
@@ -21,6 +21,12 @@ import yaml
 _TARGET_ALIASES: Dict[str, str] = {
     "frido.models.diffusion.frido.FridoDiffusion":
         "frido_tpu_torch.models.frido.FridoDiffusion",
+    "frido.models.diffusion.frido.DDPM":
+        "frido_tpu_torch.models.frido.DDPM",
+    # the JAX package's own target names, as its configs and tests write
+    # them: the port answers them without importing that package
+    "frido_tpu.models.frido.DDPM": "frido_tpu_torch.models.frido.DDPM",
+    "frido_tpu.nn.pyunet.PyUNetModel": "frido_tpu_torch.nn.pyunet.PyUNetModel",
     "frido.modules.diffusionmodules.pyunet.PyUNetModel":
         "frido_tpu_torch.nn.pyunet.PyUNetModel",
     "taming.models.msvqgan.MSFPNVQModel":

@@ -43,6 +43,7 @@ class SamplerConfig:
     eta: float = 1.0
     guidance_scale: float = 1.0
     embed_dim_list: Sequence[int] = (4, 4)
+    use_split_head: bool = True
     specify_channels: Sequence[int] = ()
     num_stage: int = 2
     kind: str = "plms"   # 'plms' | 'ddim' | 'dpmpp' | 'vanilla' (full-T)
@@ -86,7 +87,9 @@ def _make_eps_window(cfg: SamplerConfig, eps_model: EpsModel, context,
                      uncond_context, stage: int, prefix: torch.Tensor,
                      suffix: torch.Tensor, aux: Any = None):
     """eps(x_w, t) -> window-width eps with guidance folded in; the
-    split-head UNet already returns only the stage's window."""
+    split-head UNet already returns only the stage's window, another UNet's
+    full-width output is cut to it."""
+    start, end = cfg.window(stage)
     off = cfg.offset
     gs = cfg.guidance_scale
     aux2 = _doubled(aux) if cfg.cfg_mode == "batched" else None
@@ -96,9 +99,7 @@ def _make_eps_window(cfg: SamplerConfig, eps_model: EpsModel, context,
             return eps_model(x_in, tb, ctx, stage)
         return eps_model(x_in, tb, ctx, stage, a)
 
-    def eps(x_w, tb):
-        x = torch.cat([prefix, x_w, suffix], dim=-1)
-        x_in = x[..., off:] if off else x
+    def guided(x_in, tb):
         if gs != 1.0:
             if uncond_context is None:
                 raise ValueError("guidance_scale != 1 requires "
@@ -112,6 +113,11 @@ def _make_eps_window(cfg: SamplerConfig, eps_model: EpsModel, context,
                 e_u, e_c = out2.chunk(2, dim=0)
             return e_u + gs * (e_c - e_u)
         return call(x_in, tb, context, aux)
+
+    def eps(x_w, tb):
+        x = torch.cat([prefix, x_w, suffix], dim=-1)
+        out = guided(x[..., off:] if off else x, tb)
+        return out if cfg.use_split_head else out[..., start - off:end - off]
 
     return eps
 

@@ -63,8 +63,11 @@ class VQLPIPSWithDiscriminator(nn.Module):
         if disc_loss not in ("hinge", "vanilla"):
             raise ValueError(f"disc_loss {disc_loss!r}")
         if disc_conditional:
-            raise NotImplementedError("a conditional discriminator is not "
-                                      "ported (no config sets it)")
+            raise NotImplementedError(
+                "a conditional discriminator: the JAX package stores "
+                "disc_conditional and never reads it (frido_tpu/losses/"
+                "vqperceptual.py:87), so there is no reference to port; no "
+                "config sets it")
         device = resolve_device(device)
         self.disc_start = disc_start
         self.codebook_weight = codebook_weight

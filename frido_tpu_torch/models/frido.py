@@ -32,7 +32,16 @@ Checkpoints: ``tokenize`` runs the cond stage's host tokenizer;
 ``load_torch_checkpoint`` loads a reference Lightning ``.ckpt`` in place
 (``ignore_keys`` dropped first, the scalar ``scale_factor`` made a vector
 under ``adopted_scale_factor``), as ``models/frido.py:344-362`` of the JAX
-package. Not ported yet: pixel-space DDPM.
+package.
+
+Pixel-space DDPM (``first_stage_config`` None, ``models/frido.py:243-247``
+of the JAX package; :class:`DDPM` is its config name): the pyramid is one
+stage of ``channels``, encode and decode are the identity (with the scale
+factor), the batch's ``image`` is the latent. Conditioning
+(``conditioning_key``): none, ``crossattn`` or ``concat`` (an NHWC map
+joined to the latent); ``hybrid`` and ``adm`` work through
+:class:`DiffusionWrapper` and are refused here, where the JAX package
+fails on them (see the messages).
 
 Image logs (``models/frido.py:605-770`` of the JAX package):
 ``log_images`` gives the inputs, their reconstruction, the conditioning
@@ -97,17 +106,42 @@ _FRIDO_DEFAULTS: Dict[str, Any] = dict(
 )
 
 
+CONDITIONING_KEYS = (None, "concat", "crossattn", "hybrid", "adm")
+
+
 class DiffusionWrapper(nn.Module):
     """Holds the denoiser as ``diffusion_model`` (key ``model.diffusion_
-    model.*``) and routes cross-attention conditioning into it."""
+    model.*``) and routes conditioning into it by ``conditioning_key``
+    (``models/frido.py:40-92``): ``None`` none; ``concat`` the
+    ``c_concat`` maps on the channels; ``crossattn`` the ``c_crossattn``
+    token sequences, joined, as the context; ``hybrid`` both; ``adm`` the
+    first ``c_crossattn`` entry as the class labels ``y``. NCHW."""
 
-    def __init__(self, unet_config: Dict[str, Any], device=None):
+    def __init__(self, unet_config: Dict[str, Any],
+                 conditioning_key: Optional[str] = "crossattn", device=None):
         super().__init__()
+        if conditioning_key not in CONDITIONING_KEYS:
+            raise ValueError(f"conditioning_key {conditioning_key!r} is not "
+                             f"one of {CONDITIONING_KEYS}")
+        self.conditioning_key = conditioning_key
         self.diffusion_model = instantiate_from_config(unet_config,
                                                        device=device)
 
-    def forward(self, x, t, context=None, stage=0, spade_pre=None):
-        return self.diffusion_model(x, t, context, stage, spade_pre)
+    def forward(self, x, t, c_concat=None, c_crossattn=None, stage=0,
+                spade_pre=None):
+        ck, unet = self.conditioning_key, self.diffusion_model
+        if ck in ("concat", "hybrid"):
+            x = torch.cat([x] + list(c_concat), dim=1)
+        context = None
+        if ck in ("crossattn", "hybrid"):
+            context = torch.cat(list(c_crossattn), dim=1)
+        if ck == "adm":
+            return unet(x, t, stage=stage, spade_pre=spade_pre,
+                        y=c_crossattn[0])
+        return unet(x, t, context, stage, spade_pre)
+
+    def spade_tables(self, x_cond: torch.Tensor, stage: int):
+        return self.diffusion_model.spade_tables(x_cond, stage)
 
 
 class FridoDiffusion(nn.Module):
@@ -125,8 +159,6 @@ class FridoDiffusion(nn.Module):
         super().__init__()
         if unet_config is None:
             raise ValueError("unet_config is required")
-        if first_stage_config is None:
-            raise NotImplementedError("pixel-space DDPM is not ported yet")
         self.device = resolve_device(device)
         for k, v in _FRIDO_DEFAULTS.items():
             setattr(self, k, kwargs.pop(k, v))
@@ -135,9 +167,22 @@ class FridoDiffusion(nn.Module):
             self.conditioning_key = None
         elif self.conditioning_key is None:
             self.conditioning_key = "crossattn"
-        if self.conditioning_key not in (None, "crossattn"):
-            raise NotImplementedError(
-                f"conditioning_key {self.conditioning_key!r} is not ported")
+        if self.conditioning_key == "adm":
+            raise ValueError(
+                "conditioning_key 'adm' through FridoDiffusion: the JAX "
+                "package feeds the cond stage's float embedding to the "
+                "UNet's label_emb as class ids and fails in init_params "
+                "('indices must have an integer type', frido_tpu/nn/"
+                "pyunet.py:580); class labels work through "
+                "DiffusionWrapper('adm') with integer y")
+        if self.conditioning_key == "hybrid":
+            raise ValueError(
+                "conditioning_key 'hybrid' through FridoDiffusion: the JAX "
+                "package's apply_model passes its one context as c_concat "
+                "alone (frido_tpu/models/frido.py:125), so the token "
+                "context is joined to the latent's channels and the concat "
+                "fails in init_params; use DiffusionWrapper('hybrid') with "
+                "both inputs")
 
         self.schedule = DiffusionSchedule.create(
             given_betas=self.given_betas, beta_schedule=self.beta_schedule,
@@ -146,9 +191,19 @@ class FridoDiffusion(nn.Module):
             v_posterior=self.v_posterior,
             parameterization=self.parameterization)
 
-        self.first_stage_ddconfig = first_stage_config["params"]["ddconfig"]
-        self.embed_dim_list: List[int] = list(
-            first_stage_config["params"]["embed_dim"])
+        if first_stage_config is None:
+            # pixel-space DDPM: no first stage, encode and decode are the
+            # identity and the pyramid is one stage of every channel
+            self.first_stage_ddconfig = None
+            self.embed_dim_list: List[int] = [self.channels]
+        else:
+            self.first_stage_ddconfig = first_stage_config["params"][
+                "ddconfig"]
+            self.embed_dim_list = list(
+                first_stage_config["params"]["embed_dim"])
+        unet_params = unet_config.get("params", {})
+        self.use_split_head = bool(unet_params.get("use_split_head", False))
+        self.use_spade = bool(unet_params.get("use_SPADE_norm", False))
         self.num_stage = len(self.embed_dim_list)
         if len(self.stage_loss_ratio) != self.num_stage \
                 and self.num_stage == 1:
@@ -156,9 +211,11 @@ class FridoDiffusion(nn.Module):
             self.stage_loss_ratio = (1.0,)
         if self.loss_type not in ("l1", "l2"):
             raise NotImplementedError(f"loss_type {self.loss_type!r}")
-        self.model = DiffusionWrapper(unet_config, device=self.device)
-        self.first_stage_model = instantiate_from_config(
-            first_stage_config, device=self.device, seed=None)
+        self.model = DiffusionWrapper(unet_config, self.conditioning_key,
+                                      device=self.device)
+        self.first_stage_model = (
+            None if first_stage_config is None else instantiate_from_config(
+                first_stage_config, device=self.device, seed=None))
         if isinstance(cond_stage_config, dict):
             self.cond_stage_model = instantiate_from_config(
                 cond_stage_config, device=self.device)
@@ -193,7 +250,8 @@ class FridoDiffusion(nn.Module):
         first stage stays in eval mode (no codebook EMA update, no Gumbel
         noise), as the JAX trainer encodes it deterministically."""
         super().train(mode)
-        self.first_stage_model.eval()
+        if self.first_stage_model is not None:
+            self.first_stage_model.eval()
         return self
 
     def _table(self, name: str) -> torch.Tensor:
@@ -280,28 +338,43 @@ class FridoDiffusion(nn.Module):
     def apply_model(self, x: torch.Tensor, t: torch.Tensor,
                     context: Optional[torch.Tensor], stage: int,
                     spade_pre=None) -> torch.Tensor:
-        """eps-hat for NHWC ``x`` at timesteps ``t``; NHWC out. Under
-        tiling each tile recomputes its SPADE tables (``spade_pre`` holds
-        full-grid tables and is not used)."""
-        if self.conditioning_key is None:
-            context = None
+        """eps-hat for NHWC ``x`` at timesteps ``t``; NHWC out. ``context``
+        is the cross-attention context, or with ``concat`` an NHWC map
+        joined to ``x`` on the channels (``models/frido.py:116-126``).
+        Under tiling each tile recomputes its SPADE tables (``spade_pre``
+        holds full-grid tables and is not used)."""
         sip = self._tiling(x.shape[1])
         if sip:
             return tiled_apply(
                 lambda tile: self.apply_model(tile, t, context, stage), x,
                 ks=tuple(sip["ks"]), stride=tuple(sip["stride"]))
-        out = self.model(to_nchw(x), t, context, stage, spade_pre)
+        ck = self.conditioning_key
+        kw = {}
+        if ck == "crossattn":
+            kw["c_crossattn"] = [context]
+        elif ck == "concat":
+            kw["c_concat"] = [to_nchw(context)]
+        out = self.model(to_nchw(x), t, stage=stage, spade_pre=spade_pre,
+                         **kw)
         return to_nhwc(out)
 
     def spade_tables(self, x_cond: torch.Tensor, stage: int):
         """Stage-invariant SPADE tables from the frozen NHWC channels."""
-        return self.model.diffusion_model.spade_tables(to_nchw(x_cond), stage)
+        return self.model.spade_tables(to_nchw(x_cond), stage)
+
+    def _first_stage(self, what: str):
+        if self.first_stage_model is None:
+            raise ValueError(f"{what}: a pixel-space DDPM has no first "
+                             f"stage")
+        return self.first_stage_model
 
     @torch.no_grad()
     def encode_first_stage(self, x: torch.Tensor) -> torch.Tensor:
-        """NHWC image -> the scaled NHWC diffusion latent [coarse | fine]."""
-        return self._scale_latent(
-            self.first_stage_model.encode_interface(x), invert=False)
+        """NHWC image -> the scaled NHWC diffusion latent [coarse | fine]
+        (the scaled image itself without a first stage)."""
+        if self.first_stage_model is not None:
+            x = self.first_stage_model.encode_interface(x)
+        return self._scale_latent(x, invert=False)
 
     @torch.no_grad()
     def decode_first_stage(self, z: torch.Tensor,
@@ -310,8 +383,11 @@ class FridoDiffusion(nn.Module):
         ``chunk`` divides the batch (``models/frido.py:389-420``); otherwise
         the whole batch at once, with a warning. A latent wider than the
         tiling's ``ks`` decodes tile by tile, each tile to ``ks * vqf``
-        pixels; chunking wraps the tiled decode."""
+        pixels; chunking wraps the tiled decode. Without a first stage,
+        the unscaled latent is the image."""
         z = self._scale_latent(z, invert=True)
+        if self.first_stage_model is None:
+            return z
         decode = self.first_stage_model.decode_interface
         sip = self._tiling(z.shape[1])
         if sip:
@@ -334,14 +410,15 @@ class FridoDiffusion(nn.Module):
     def decode_first_stage_with_codes(self, z: torch.Tensor):
         """(NHWC images, per-scale int32 code grids) of a scaled latent, for
         codebook analysis."""
-        return self.first_stage_model.decode_interface(
+        return self._first_stage("decode_first_stage_with_codes").\
+            decode_interface(
             self._scale_latent(z, invert=True), return_code=True)
 
     @torch.no_grad()
     def quantize_latent(self, z: torch.Tensor) -> torch.Tensor:
         """Each stage's channel block of an unscaled NHWC latent through its
         codebook."""
-        return self.first_stage_model.quantize_latent(z)
+        return self._first_stage("quantize_latent").quantize_latent(z)
 
     # ------------------------------------------------------------------
     # training (models/frido.py:463-543)
@@ -386,7 +463,9 @@ class FridoDiffusion(nn.Module):
                 context = context.to(compute_dtype)
         model_out = self.apply_model(x_noisy, t, context, stage).float()
         target = noise if self.parameterization == "eps" else z
-        target = target[..., start:end]   # the split head gives the window
+        target = target[..., start:end]
+        if not self.use_split_head:   # the split head gives the window
+            model_out = model_out[..., start:end]
         if self.loss_type == "l1":
             per = (model_out - target).abs()
         else:
@@ -423,8 +502,9 @@ class FridoDiffusion(nn.Module):
         factors. A training script calls it before the first step."""
         if not self.scale_by_std:
             raise ValueError("init_scale_by_std needs scale_by_std")
-        z = self.first_stage_model.encode_interface(
-            images.to(self.device))
+        z = images.to(self.device)
+        if self.first_stage_model is not None:
+            z = self.first_stage_model.encode_interface(z)
         factors, start = [], 0
         for d in self.embed_dim_list:
             std = z[..., start:start + d].float().std(correction=0)
@@ -470,6 +550,7 @@ class FridoDiffusion(nn.Module):
             schedule=self.schedule, num_steps=steps, eta=eta,
             guidance_scale=guidance_scale,
             embed_dim_list=tuple(self.embed_dim_list),
+            use_split_head=self.use_split_head,
             specify_channels=tuple(self.specify_channels),
             num_stage=self.num_stage, kind=sampler, cfg_mode=cfg_mode,
             keep_intermediates=keep_intermediates)
@@ -485,7 +566,8 @@ class FridoDiffusion(nn.Module):
 
         # the SPADE tables are full-grid: none under tiling
         stage_invariants = None
-        if self.num_stage > 1 and not self.extra.get("split_input_params"):
+        if (self.use_split_head and self.use_spade and self.num_stage > 1
+                and not self.extra.get("split_input_params")):
             def stage_invariants(stage, x_cond):
                 if stage == 0:
                     return None
@@ -644,3 +726,9 @@ class FridoDiffusion(nn.Module):
         log["denoise_row"] = self._decode_intermediates_row(
             inters, final, max(ddim_steps // 5, 1))
         return log
+
+
+class DDPM(FridoDiffusion):
+    """The single-stage classic DDPM entry point (``models/frido.py:772``),
+    kept for config compatibility; with no ``first_stage_config`` it runs
+    in pixel space."""

@@ -4,6 +4,10 @@
 A GroupNorm followed by gamma/beta predicted from the previous pyramid
 stage's feature map by 3x3 convs; this is how the fine stages are
 conditioned on the already-denoised coarse stages.
+
+A SPADE that never sees a feature map (``label_nc=None``: a stage-0
+expert trunk's, or a one-stage model's) has only its parameter-free norm,
+as the JAX package creates the modulation convs on their first call.
 """
 
 from __future__ import annotations
@@ -19,11 +23,14 @@ from frido_tpu_torch.ops.image import interpolate_nearest
 
 
 class SPADE(nn.Module):
-    def __init__(self, norm_nc: int, label_nc: int, norm_eps: float = 1e-5,
-                 kernel_size: int = 3, nhidden: int = 128, device=None):
+    def __init__(self, norm_nc: int, label_nc: Optional[int],
+                 norm_eps: float = 1e-5, kernel_size: int = 3,
+                 nhidden: int = 128, device=None):
         super().__init__()
         pw = kernel_size // 2
         self.param_free_norm = GroupNorm(norm_nc, eps=norm_eps, device=device)
+        if label_nc is None:
+            return
         # original: mlp_shared = Sequential(Conv2d, ReLU) -> key mlp_shared.0
         self.mlp_shared = nn.ModuleDict({"0": Conv2d(
             label_nc, nhidden, kernel_size, padding=pw, device=device)})
@@ -37,6 +44,9 @@ class SPADE(nn.Module):
         """The modulation tables at resolution ``hw``; during sampling they
         depend only on the frozen previous-stage channels, so the sampler
         computes them once per stage."""
+        if not hasattr(self, "mlp_gamma"):
+            raise ValueError("this SPADE has no modulation convs: its trunk "
+                             "never sees a previous stage's feature map")
         cond = interpolate_nearest(cond, hw)
         actv = F.relu(self.mlp_shared["0"](cond))
         return self.mlp_gamma(actv), self.mlp_beta(actv)

@@ -11,6 +11,9 @@ Pallas flash kernel (``nn/transformer.py:87-90``). Under
 self-attention over 256/64/16 tokens, cross-attention and the BERT encoder
 over 77) goes to the short-sequence kernel; without it they take the plain
 matmul-softmax-matmul form, as the JAX package leaves those sites to XLA.
+The PyUNet's plain ``AttentionBlock`` (``nn/pyunet.py``) routes through
+the same gates, one head per batch row: in the pixel-space DDPM its
+1024-token self-attention takes flash, its 256- and 64-token ones smalls.
 The gates are the JAX package's site sets, not measurements on the card.
 On CPU tensors every kernel wrapper computes the plain form.
 """
@@ -23,17 +26,27 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from frido_tpu_torch.nn.layers import Conv2d, Dense, LayerNorm
+from frido_tpu_torch.nn.layers import (Conv2d, Dense, Embed, GroupNorm,
+                                      LayerNorm)
 from frido_tpu_torch.nn.spade import SPADE
 from frido_tpu_torch.ops.cuda import dispatch
 from frido_tpu_torch.ops.cuda.attention import (attention_plain,
                                                 flash_attention,
                                                 smalls_attention)
+from frido_tpu_torch.ops.image import interpolate_nearest
 
 
 def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> torch.Tensor:
-    """softmax(q k^T * scale) v over [..., N, d], fp32 softmax."""
+    """softmax(q k^T * scale) v over [..., N, d], fp32 softmax, in q's
+    dtype. Inputs of mixed dtypes (fp32 tokens promoted by a position
+    embedding attending to a bf16 context) are promoted to their common
+    dtype first, as ``jnp.einsum`` promotes them."""
+    dtype = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
+                                v.dtype)
+    if (q.dtype, k.dtype, v.dtype) != (dtype,) * 3:
+        return dot_attention(q.to(dtype), k.to(dtype), v.to(dtype),
+                             scale).to(q.dtype)
     nq, nk = q.shape[-2], k.shape[-2]
     if dispatch.use_flash(nk):
         return flash_attention(q, k, v, scale)
@@ -88,10 +101,16 @@ class GEGLUFeedForward(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    """self-attn -> cross-attn(context) -> GEGLU FF, pre-LayerNorm."""
+    """self-attn -> cross-attn(context) -> GEGLU FF, pre-LayerNorm.
+
+    ``use_mscond`` adds the previous-stage branch (``nn/transformer.py:
+    150-187``): self-attention over the previous stage's tokens, then the
+    block's tokens attending to them, between the self- and the
+    cross-attention."""
 
     def __init__(self, dim: int, n_heads: int, d_head: int,
-                 context_dim: Optional[int] = None, device=None):
+                 context_dim: Optional[int] = None, use_mscond: bool = False,
+                 device=None):
         super().__init__()
         self.attn1 = CrossAttention(dim, None, n_heads, d_head, device=device)
         self.ff = GEGLUFeedForward(dim, device=device)
@@ -100,47 +119,89 @@ class BasicTransformerBlock(nn.Module):
         self.norm1 = LayerNorm(dim, device=device)
         self.norm2 = LayerNorm(dim, device=device)
         self.norm3 = LayerNorm(dim, device=device)
+        self.use_mscond = use_mscond
+        if use_mscond:
+            self.attn_prev = CrossAttention(dim, None, n_heads, d_head,
+                                            device=device)
+            self.norm_prev = LayerNorm(dim, device=device)
+            self.attn_cross = CrossAttention(dim, dim, n_heads, d_head,
+                                             device=device)
+            self.norm_cross = LayerNorm(dim, device=device)
 
-    def forward(self, x, context=None):
+    def forward(self, x, context=None, x_prev_stage=None):
         x = self.attn1(self.norm1(x)) + x
+        if x_prev_stage is not None and self.use_mscond:
+            prev = self.attn_prev(self.norm_prev(x_prev_stage)) + x_prev_stage
+            x = self.attn_cross(self.norm_cross(x), context=prev) + x
         x = self.attn2(self.norm2(x), context=context) + x
         return self.ff(self.norm3(x)) + x
 
 
 class SpatialTransformer(nn.Module):
-    """SPADE pre-norm (eps 1e-6, ``nn/transformer.py:208``) -> 1x1 proj-in
-    -> tokens -> transformer blocks -> 1x1 proj-out, residual. ``proj_out``
-    starts at zero, as the original's ``zero_module``.
+    """Pre-norm -> 1x1 proj-in -> tokens (+ position embedding) ->
+    transformer blocks -> 1x1 proj-out, residual (``nn/transformer.py:
+    190-265``). ``proj_out`` starts at zero, as the original's
+    ``zero_module``.
 
-    The plain GroupNorm pre-norm (no Frido config uses it), the learned
-    position embedding and the previous-stage cross-attention branch
-    (``use_mscond``) are off on the t2i path and not ported yet."""
+    The pre-norm is SPADE (eps 1e-6) with ``use_spade``, else GroupNorm
+    (eps 1e-6). ``cond_channels``: the channels of the previous stage's
+    feature map this site is given, or None where it never gets one (a
+    stage-0 expert trunk, a one-stage model); SPADE's modulation convs and
+    the ``use_mscond`` branch (``cond_proj_in`` on the feature map
+    resized to this grid, then ``attn_prev``/``attn_cross`` in each block)
+    exist only with it, as the JAX package creates them on their first
+    call. ``pos_embed_size`` > 0 adds a learned position embedding: token
+    ``t`` of an h x w grid takes ``(pos_embed[t // h] + pos_embed[t % h])
+    / 2``, the original's transposed ``meshgrid`` (``nn/transformer.py:
+    249-258``), which is not row / column on a grid that is not square."""
 
     def __init__(self, in_channels: int, n_heads: int, d_head: int,
                  depth: int, context_dim: Optional[int],
-                 spade_channels: int, device=None):
+                 cond_channels: Optional[int], use_spade: bool = True,
+                 pos_embed_size: int = -1, use_mscond: bool = False,
+                 device=None):
         super().__init__()
         inner = n_heads * d_head
-        self.norm = SPADE(in_channels, spade_channels, norm_eps=1e-6,
-                          device=device)
+        self.use_spade = use_spade
+        if use_spade:
+            self.norm = SPADE(in_channels, cond_channels, norm_eps=1e-6,
+                              device=device)
+        else:
+            self.norm = GroupNorm(in_channels, eps=1e-6, device=device)
+        self.pos_embed = (Embed(pos_embed_size, in_channels, device=device)
+                          if pos_embed_size > 0 else None)
         self.proj_in = Conv2d(in_channels, inner, 1, device=device)
+        mscond = use_mscond and cond_channels is not None
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(inner, n_heads, d_head, context_dim,
-                                  device=device)
+                                  mscond, device=device)
             for _ in range(depth)])
         self.proj_out = Conv2d(inner, in_channels, 1, zero_init=True,
                                device=device)
+        self.cond_proj_in = (Conv2d(cond_channels, inner, 1, device=device)
+                             if mscond else None)
 
     def spade_tables(self, cond, hw):
-        return self.norm.gamma_beta(cond, hw)
+        return self.norm.gamma_beta(cond, hw) if self.use_spade else None
 
     def forward(self, x, context=None, feat_cond=None, spade_pre=None):
         b, _, h, w = x.shape
         x_in = x
-        x = self.proj_in(self.norm(x, feat_cond, spade_pre))
+        x = self.norm(x, feat_cond, spade_pre) if self.use_spade \
+            else self.norm(x)
+        prev = None
+        if feat_cond is not None and self.cond_proj_in is not None:
+            fc = self.cond_proj_in(interpolate_nearest(feat_cond, (h, w)))
+            prev = fc.reshape(b, fc.shape[1], h * w).transpose(1, 2)
+        x = self.proj_in(x)
         c = x.shape[1]
         x = x.reshape(b, c, h * w).transpose(1, 2)
+        if self.pos_embed is not None:
+            t = torch.arange(h * w, device=x.device)
+            # an fp32 table promotes bf16 tokens, as jnp does
+            x = x + ((self.pos_embed(t // h) + self.pos_embed(t % h))
+                     / 2.0)[None]
         for block in self.transformer_blocks:
-            x = block(x, context=context)
+            x = block(x, context=context, x_prev_stage=prev)
         x = x.transpose(1, 2).reshape(b, c, h, w)
         return self.proj_out(x) + x_in

@@ -40,7 +40,11 @@ class ResnetBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.dropout > 0.0 and self.training:
-            raise NotImplementedError("dropout in training is not ported")
+            raise NotImplementedError(
+                "ResnetBlock dropout in training: the JAX package raises "
+                "flax.errors.AssignSubModuleError there (nn.Dropout built "
+                "in __call__ of a setup module, frido_tpu/nn/vqgan.py:"
+                "52-53), so there is no reference to port")
         h = self.conv1(self.norm1(x, fuse_silu=True))
         h = self.conv2(self.norm2(h, fuse_silu=True))
         if self.nin_shortcut is not None:

@@ -20,6 +20,13 @@ layer               torch weight            sharded torch dim
 ``Embed``           [N, D]                  0 (vocab)
 ==================  ======================  ==========================
 
+The PyUNet's options add no layer of their own: the
+``AttentionBlock``'s ``qkv``/``proj_out`` are ``Conv1d``, ``label_emb``
+an ``Embed`` (vocab rows) or a ``Dense``, ``pos_embed`` an ``Embed``, the
+mscond branch, the expert trunks and the id head convs and dense layers,
+so the rule covers every leaf, as ``tests/test_torch_pyunet_options.py``
+holds against the JAX rule.
+
 At run time (``nn/layers.py``) a sharded conv, dense or conv-transpose
 computes its own output channels with its slice of the (replicated) bias
 and all-gathers them along the channel axis, so every consumer sees the

@@ -9,7 +9,9 @@ AdamW call and updates the EMA of the denoiser wrapper ``model.model``.
 The trainable set is every parameter outside ``first_stage_model``: the
 denoiser and the cond stage, whatever ``cond_stage_trainable`` says (the
 JAX package never reads that field either). The first stage gets
-``requires_grad=False`` and stays in eval mode.
+``requires_grad=False`` and stays in eval mode. A pixel-space ``DDPM`` has
+no first stage: its ``encode_first_stage`` is the (scaled) identity, so
+the batch's ``image`` is the latent.
 
 Every random number of a step comes from :func:`_draw`, from the caller's
 ``torch.Generator`` (drawn on the generator's device and moved to the
@@ -110,7 +112,8 @@ class DiffusionTrainer:
         self.use_ema = use_ema
         self.remat = remat
         self.compute_dtype = compute_dtype
-        model.first_stage_model.requires_grad_(False)
+        if model.first_stage_model is not None:
+            model.first_stage_model.requires_grad_(False)
         model.train()
         self.sharding = (shard_model_(model, self.layout, fsdp, min_size)
                          if fsdp or world_size > 1 else None)

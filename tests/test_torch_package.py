@@ -16,7 +16,11 @@ coverage of the t2i configuration.
 - Every tensor of the full-width t2i port (built on the ``meta`` device)
   gets a JAX leaf of the same shape through ``io/jax_weights.py``, and no
   JAX leaf is left over, the first stage's encoder and fusion heads
-  included.
+  included; so for the two full-width models ``chip_smoke.py`` builds from
+  dicts: ``ddpm-pixel`` (a pixel-space DDPM with the t2i UNet's widths,
+  GroupNorm ResBlocks, resblock up/down, scale-shift norm and the plain
+  ``AttentionBlock``) and ``t2i-ablations`` (the t2i config with stage
+  experts, mscond and position embeddings).
   The JAX shapes come from ``jax.eval_shape``, with nothing allocated.
 """
 
@@ -192,3 +196,53 @@ def test_first_load_from_many_threads_builds_once(tmp_path, monkeypatch):
     assert not errors
     assert len(set(got)) == 1 and len(got) == 16
     assert calls.read_text() == "x"
+
+
+def _full_width(name):
+    """The full-width models ``chip_smoke.py`` drives beside the configs:
+    the t2i ``unet_config``'s widths with the options switched on."""
+    cfg = jax_load_yaml(str(T2I))["model"]
+    unet = cfg["params"]["unet_config"]["params"]
+    if name == "t2i-ablations":
+        unet.update(use_stage_expert=True, use_mscond=True,
+                    use_pos_embed=True)
+        return cfg
+    pixel = dict(image_size=64, in_channels=3, out_channels=3,
+                 use_split_head=False, use_SPADE_norm=False,
+                 use_spatial_transformer=False, resblock_updown=True,
+                 use_scale_shift_norm=True, use_new_attention_order=True,
+                 num_stage=1)
+    unet = {k: v for k, v in unet.items()
+            if k not in ("split_embed_dim_list", "context_dim",
+                         "transformer_depth")}
+    unet.update(pixel)
+    return {"target": "frido.models.diffusion.frido.DDPM",
+            "params": dict(channels=3, image_size=64, timesteps=1000,
+                           unet_config={"target": cfg["params"][
+                               "unet_config"]["target"], "params": unet})}
+
+
+@pytest.mark.parametrize("name", ["ddpm-pixel", "t2i-ablations"])
+def test_full_width_options_bridge_covers_port(name):
+    cfg = _full_width(name)
+    jmodel = jax_instantiate(cfg)
+    shapes = jax.eval_shape(lambda r: jmodel.init_params(r),
+                            jax.random.PRNGKey(0))
+    views = jax.tree_util.tree_map(
+        lambda s: np.broadcast_to(np.float32(0), s.shape), shapes)
+    got = {k: tuple(v.shape) for k, v in
+           jax_params_to_state_dict(views).items()}
+    port = instantiate_from_config(_full_width(name), device="meta")
+    want = {k: tuple(v.shape) for k, v in port.state_dict().items()}
+    assert got == want      # every leaf has its tensor: none is skipped
+    unet = {k for k in want if k.startswith("model.diffusion_model.")}
+    if name == "ddpm-pixel":
+        assert port.first_stage_model is None
+        assert "model.diffusion_model.input_blocks.0.0.weight" in unet
+        # attention at 32^2, 16^2 and 8^2: 6 in, 1 middle, 9 out
+        assert sum(".qkv." in k for k in unet) == 2 * 16
+    else:
+        for part in ("input_blocks_expert.1.", "attn_prev", "attn_cross",
+                     "cond_proj_in", "pos_embed"):
+            assert any(part in k for k in unet), part
+        assert not any(".input_blocks." in k for k in unet)
