@@ -180,7 +180,18 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    step, checked alike, one fp32 UNet call a stage card against CPU,
    PLMS-20 (CFG 1.5) with the decode at batch 4 and one bf16 train step
    at batch 32 in both configurations; img/s, step seconds and peak
-   memory above the model, beside the card.
+   memory above the model, beside the card;
+20. (run after 3) jax-import: the committed export of a toy t2i train
+   state that the JAX package trained two steps
+   (``frido_tpu_torch/data/fixtures/jax_export_toy``, made by
+   ``tools/make_jax_export_fixture.py``; the card's machine has no JAX
+   and no orbax) imported as a port run, every tensor of the trainer
+   restored on the card bit for bit the export's arrays (the bf16 first
+   moment included), the JAX run's third step in fp32 against the JAX
+   loss, weights and EMA it records, PLMS-4 from the EMA; in the default
+   configuration and all-kernel, launches counted from 0 in each; then the
+   VG preprocessing tools (no h5py) on a raw dump; its seconds beside the
+   card.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit; before that, one ``{"kernels": [...]}``
@@ -3767,6 +3778,75 @@ def cli_image_log_check(name, run_dir, dots):
     return [n for n in names]
 
 
+def jax_import_phase(card):
+    """A train state the JAX package trained, carried onto the card: the
+    committed export ``frido_tpu_torch/data/fixtures/jax_export_toy``
+    (``tools/make_jax_export_fixture.py``: a toy t2i trained two steps,
+    AdamW with a bf16 first moment) imported as a port run
+    (``tools/import_jax_run.py``), its trainer restored on the card with
+    every tensor bit for bit the export's arrays, the JAX run's third step
+    in fp32 against the JAX loss (3e-4), weights (2 lr) and EMA, then
+    PLMS-4 from the EMA (``tools/jax_import_check.py``); in the default
+    configuration (flash and the VQ argmin launched) and all-kernel (all
+    six). Then the VG preprocessing without h5py on a raw dump
+    (``tools/preprocess_vg_sg2im.py``, ``preprocess_vg_to_sg.py``,
+    ``convert_vg_to_coco_style.py``). Returns the phase's seconds."""
+    import shutil
+
+    from frido_tpu_torch.tools import (convert_vg_to_coco_style,
+                                       jax_import_check, preprocess_vg_sg2im,
+                                       preprocess_vg_to_sg)
+    from frido_tpu_torch.tools.make_mini_coco import write_vg_raw
+
+    work = REPO / "build" / "chip_smoke_jax_import"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        for label in ("default", "all-kernel"):
+            with (all_kernels() if label == "all-kernel"
+                  else contextlib.nullcontext()):
+                zero_launches()
+                out = jax_import_check.run(torch.device("cuda"),
+                                           str(work / label))
+                launches = read_launches()
+            want = (KERNELS if label == "all-kernel"
+                    else ("flash_attention", "vq_argmin"))
+            idle = [k for k in want if launches[k] == 0]
+            if idle:
+                raise AssertionError(f"jax-import ({label}) launched no "
+                                     f"{idle}: {launches}")
+            log(f"jax-import ({label}): step {out['step']}, cursor "
+                f"{out['meta']}, every tensor bit for bit the export's; "
+                f"third step against JAX {out['errors']}; "
+                f"PLMS-{jax_import_check.PLMS_STEPS} from the EMA finite; "
+                f"launches {launches}; seconds "
+                f"{ {k: round(v, 2) for k, v in out['seconds'].items()} }")
+        t1 = time.perf_counter()
+        raw = work / "vg"
+        flags = write_vg_raw(str(raw))
+        preprocess_vg_sg2im.main(
+            ["--vg_dir", str(raw), "--min_object_instances", "2",
+             "--min_attribute_instances", "2",
+             "--min_relationship_instances", "2",
+             "--min_objects_per_image", "2",
+             *[x for kv in flags.items() for x in kv]])
+        for split in ("train", "val"):
+            preprocess_vg_to_sg.main(["-b", str(raw), "-s", split])
+            convert_vg_to_coco_style.main(["-b", str(raw), "-s", split])
+        sg = json.loads((raw / "train_sg.json").read_text())
+        boxes = json.loads((raw / "train_coco_style.json").read_text())
+        if not (sg["annotations"] and boxes["annotations"]):
+            raise AssertionError("VG preprocessing wrote no annotations")
+        log(f"VG preprocessing without h5py: {len(sg['annotations'])} "
+            f"sg2i captions, {len(boxes['annotations'])} layout2i boxes in "
+            f"train, {time.perf_counter() - t1:.2f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    log(f"jax-import phase: {secs:.2f} s on {card}")
+    return secs
+
+
 def dryrun_phase(card):
     """``tools/dryrun_multichip.py --full`` under torchrun on min(4,
     device count) cards (NCCL): the four checks at full t2i width. With
@@ -4221,6 +4301,8 @@ def main():
     with all_kernels():
         toy_training_phase("all-kernel")
     mark("toy phases")
+    jax_import_phase(card)
+    mark("jax-import")
 
     model = build_main_model(T2I)
     t2i_arch = architecture(model, PATHS["t2i"], 1)

@@ -26,9 +26,11 @@ rank its parts of the full tensors again. The JAX package saves
 ``jax.device_get(state)``, full arrays, alike: an ``--fsdp`` run's
 ``last`` resumes without ``--fsdp``, and the reverse.
 
-Not carried over: the JAX package's legacy orbax layout whose EMA shadowed
-the whole model (``checkpoint.py:97-111``); the port reads no orbax
-checkpoint.
+The port reads no orbax directory itself: ``tools/export_jax_checkpoint.py``
+exports one to numpy files where orbax is, and
+``tools/import_jax_run.py`` writes that export in this format (the legacy
+layout whose EMA shadowed the whole model, ``checkpoint.py:97-111``,
+included: ``io/jax_weights.denoiser_ema``).
 """
 
 from __future__ import annotations

@@ -36,7 +36,11 @@ buffers of the same names, as-is. Every leaf is mapped; none is dropped.
 :func:`jax_train_state_to_port` carries a JAX diffusion ``TrainState``
 (``frido_tpu/training/trainer.py``) across: the weights, the EMA of
 ``params["params"]["model"]`` and its counter, the optax AdamW moments and
-update count (and ``MultiSteps``' running mean), and the step.
+update count (and ``MultiSteps``' running mean), and the step;
+:func:`jax_vqgan_state_to_port` an MS-VQGAN ``VQGANTrainState``. Both read
+a live state or the raw tree of an orbax restore without a template (what
+``io/jax_export.py`` rebuilds from an export), and the diffusion one also
+the legacy layout whose EMA shadows the whole params tree.
 """
 
 from __future__ import annotations
@@ -140,13 +144,28 @@ def _arrays(tree: Any) -> Any:
     return tree if hasattr(tree, "shape") else None
 
 
+def _get(node: Any, name: str) -> Any:
+    """A field of an optax state node: an attribute of a live state (named
+    tuples, flax dataclasses) or a key of the raw dict an orbax restore
+    without a template gives."""
+    return node[name] if isinstance(node, Mapping) else getattr(node, name)
+
+
+def _has(node: Any, name: str) -> bool:
+    return name in node if isinstance(node, Mapping) else hasattr(node, name)
+
+
 def _find(tree: Any, fields: Tuple[str, ...]) -> Any:
-    """The first node of an optax state (nested named tuples, tuples and
-    dicts) that has every attribute in ``fields``."""
-    if all(hasattr(tree, f) for f in fields):
+    """The first node of an optax state that has every field in
+    ``fields``: live (nested named tuples, tuples and dicts) or raw (an
+    orbax restore without a template: dicts by field name, lists for
+    chains, ``None`` for empty states and ``MaskedNode`` leaves)."""
+    if tree is None:
+        return None
+    if all(_has(tree, f) for f in fields):
         return tree
     children = (tree.values() if isinstance(tree, Mapping) else
-                tree if isinstance(tree, tuple) else ())
+                tree if isinstance(tree, (tuple, list)) else ())
     for child in children:
         found = _find(child, fields)
         if found is not None:
@@ -160,28 +179,64 @@ def _state_dict(tree: Any) -> Dict[str, np.ndarray]:
             for k, v in jax_params_to_state_dict(_arrays(tree)).items()}
 
 
+def _adam(opt_state: Any, what: str) -> Dict[str, Any]:
+    adam = _find(opt_state, ("mu", "nu", "count"))
+    if adam is None:
+        raise ValueError(f"no Adam state in the {what}")
+    return {"count": int(np.asarray(_get(adam, "count"))),
+            "mu": _state_dict(_get(adam, "mu")),
+            "nu": _state_dict(_get(adam, "nu"))}
+
+
+def denoiser_ema(state: Any) -> Any:
+    """The EMA of the denoiser wrapper. A legacy train state's EMA
+    shadowed the whole params tree (``{"params": {"model": ...}}``); its
+    denoiser subtree is sliced out, as ``frido_tpu/io/checkpoint.py``'s
+    ``restore_train_state`` does."""
+    ema = _get(state, "ema_params")
+    inner = ema.get("params") if isinstance(ema, Mapping) else None
+    if isinstance(inner, Mapping) and "model" in inner:
+        return inner["model"]
+    return ema
+
+
 def jax_train_state_to_port(state: Any) -> Dict[str, Any]:
     """A JAX diffusion ``TrainState`` as plain numpy: ``params`` (the
     whole model's state dict), ``ema`` (the denoiser wrapper's, keys
     relative to ``model.model``), ``ema_updates``, ``step`` and ``adam``:
     ``count``, ``mu`` and ``nu`` (state dicts of the trainable tensors),
     and with ``MultiSteps`` ``mini_step`` and ``acc``, else None. Read
-    from the optax state by field names, without importing optax."""
-    adam = _find(state.opt_state, ("mu", "nu", "count"))
-    multi = _find(state.opt_state, ("mini_step", "acc_grads"))
-    if adam is None:
-        raise ValueError("no Adam state in the TrainState's opt_state")
+    from the optax state by field names, without importing optax.
+
+    ``state`` is a live ``TrainState`` or the raw tree of an orbax
+    restore without a template (``io/jax_export.py``), in the current
+    layout or the legacy one whose EMA shadows the whole params tree."""
+    multi = _find(_get(state, "opt_state"), ("mini_step", "acc_grads"))
+    adam = _adam(_get(state, "opt_state"), "TrainState's opt_state")
+    adam.update(
+        mini_step=(None if multi is None
+                   else int(np.asarray(_get(multi, "mini_step")))),
+        acc=(None if multi is None
+             else _state_dict(_get(multi, "acc_grads"))))
     return {
-        "params": _state_dict(state.params),
-        "ema": _state_dict(state.ema_params),
-        "ema_updates": int(np.asarray(state.ema_updates)),
-        "step": int(np.asarray(state.step)),
-        "adam": {
-            "count": int(np.asarray(adam.count)),
-            "mu": _state_dict(adam.mu),
-            "nu": _state_dict(adam.nu),
-            "mini_step": (None if multi is None
-                          else int(np.asarray(multi.mini_step))),
-            "acc": None if multi is None else _state_dict(multi.acc_grads),
-        },
+        "params": _state_dict(_get(state, "params")),
+        "ema": _state_dict(denoiser_ema(state)),
+        "ema_updates": int(np.asarray(_get(state, "ema_updates"))),
+        "step": int(np.asarray(_get(state, "step"))),
+        "adam": adam,
     }
+
+
+def jax_vqgan_state_to_port(state: Any) -> Dict[str, Any]:
+    """A JAX MS-VQGAN ``VQGANTrainState`` (``params_g``, ``vars_d``,
+    ``opt_g``, ``opt_d``, ``step``; live or raw) as plain numpy, in the
+    layout of ``VQGANTrainer.state``: ``model`` (the generator's state
+    dict: its ``params``, ``ema`` and ``batch_stats`` collections),
+    ``loss`` (the loss module's: the discriminator's weights and BatchNorm
+    statistics), ``opt_g`` and ``opt_d`` (Adam ``count``, ``mu``,
+    ``nu``), ``step``."""
+    return {"model": _state_dict(_get(state, "params_g")),
+            "loss": _state_dict(_get(state, "vars_d")),
+            "opt_g": _adam(_get(state, "opt_g"), "generator's opt_g"),
+            "opt_d": _adam(_get(state, "opt_d"), "discriminator's opt_d"),
+            "step": int(np.asarray(_get(state, "step")))}

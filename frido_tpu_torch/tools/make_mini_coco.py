@@ -279,6 +279,64 @@ def write_vg_tree(root: str, n: int = 24, seed: int = 0,
     return root
 
 
+def write_vg_raw(root: str, n: int = 30, seed: int = 0) -> Dict[str, str]:
+    """A raw Visual Genome dump (``image_data.json``, ``objects.json``,
+    ``relationships.json``, ``attributes.json``), the input of
+    ``tools/preprocess_vg_sg2im.py``: ``n`` images (two below the default
+    ``min_image_size``), 1-9 objects each from a small name pool (some
+    small, one name rare, some in capitals, two with aliases), 0-6
+    relationships, 0-2 attributes an object; and alias files. Returns the
+    alias flags for the preprocessing."""
+    rng = np.random.default_rng(seed)
+    names = ["person", "dog", "tree", "car", "man", "hat", "rare thing"]
+    preds = ["next to", "on", "wearing", "near", "holding", "beside"]
+    images, objects, rels, attrs = [], [], [], []
+    for iid in range(1, n + 1):
+        w, h = (150, 120) if iid in (4, 17) else (640, 480)
+        images.append(dict(image_id=iid, width=w, height=h,
+                           url=f"http://vg/VG_100K_2/{iid}.jpg"))
+        objs = []
+        for j in range(int(rng.integers(1, 10))):
+            name = names[int(rng.integers(0, 6))] if j else "rare thing"
+            side = int(rng.integers(10, 200))
+            objs.append(dict(object_id=iid * 100 + j,
+                             names=[name.upper() if j % 4 == 3 else name],
+                             x=int(rng.integers(0, 300)),
+                             y=int(rng.integers(0, 200)), w=side,
+                             h=int(rng.integers(10, 200))))
+        objects.append(dict(image_id=iid, objects=objs))
+        rl = []
+        for r in range(int(rng.integers(0, 7))):
+            s, o = rng.choice(len(objs), 2)
+            rl.append(dict(relationship_id=iid * 1000 + r,
+                           predicate=preds[int(rng.integers(0, 6))],
+                           subject=dict(object_id=objs[s]["object_id"]),
+                           object=dict(object_id=objs[o]["object_id"])))
+        rels.append(dict(image_id=iid, relationships=rl))
+        attrs.append(dict(image_id=iid, attributes=[
+            dict(object_id=o["object_id"],
+                 attributes=[str(a) for a in rng.choice(
+                     ["tall", "red", "Red", "old"], int(rng.integers(0, 3)))])
+            for o in objs]))
+    os.makedirs(root, exist_ok=True)
+    for name, payload in [("image_data.json", images),
+                          ("objects.json", objects),
+                          ("relationships.json", rels),
+                          ("attributes.json", attrs)]:
+        with open(os.path.join(root, name), "w") as f:
+            json.dump(payload, f)
+    aliases = {"--object_aliases": ("object_alias.txt",
+                                    "man,person\nhat,cap\n"),
+               "--relationship_aliases": ("pred_alias.txt",
+                                          "beside,next to\n")}
+    flags = {}
+    for flag, (name, text) in aliases.items():
+        with open(os.path.join(root, name), "w") as f:
+            f.write(text)
+        flags[flag] = os.path.join(root, name)
+    return flags
+
+
 def write_open_images_tree(root: str, n: int = 6, seed: int = 0,
                            fixtures: str = FIXTURES) -> str:
     """An OpenImages split at ``root`` (``metadata/classes.csv``,

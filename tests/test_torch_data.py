@@ -18,9 +18,15 @@ Pixels, fixed before the comparison:
   ``FRIDO_NATIVE_LOADER=0``), for every crop method with and without the
   flip: max |d| <= 3/127.5 and mean |d| <= 1/127.5 (PIL rounds to uint8
   after each resize pass, the port stays in float);
-- against ``frido_tpu.data.native_loader.load_one`` where its library
-  builds (float on both sides, libjpeg's decode on both): max |d| <=
-  1e-4. For ``random-2d`` the native loader resizes the crop's window of
+- against ``frido_tpu.data.native_loader.load_one`` (float on both
+  sides, libjpeg's decode on both): max |d| <= 1e-4. The loader runs on
+  a private build of ``native/frido_native.cpp`` (``native/Makefile``'s
+  flags, into this worker's temporary directory), not on the shared
+  ``native/libfrido_native.so``: every pytest-xdist worker reaches the
+  JAX loader's build-on-first-use at collection
+  (``tests/test_native_loader.py``'s ``skipif``), and one that loads the
+  library while another is still writing it marks the loader unavailable
+  for good; the case skips only when g++, make or libjpeg is missing. For ``random-2d`` the native loader resizes the crop's window of
   the whole image, reading pixels outside the crop at its edges, where
   PIL (and the port) see only the crop: there the rows and columns whose
   taps stay inside the crop are held to 1e-4, and the edge is shown to
@@ -41,6 +47,8 @@ Pixels, fixed before the comparison:
 import json
 import os
 import random
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -202,13 +210,37 @@ def test_samples_equal_jax_pil_path(coco_root, method, flip, monkeypatch):
         assert {s["flipped"] for s in got} == {False, True}
 
 
+@pytest.fixture(scope="module")
+def native_library(tmp_path_factory):
+    """A private build of the JAX native loader's library, with
+    ``native/Makefile``'s rule and flags, in a directory of this worker."""
+    native = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "native")
+    missing = [t for t in ("make", "g++") if shutil.which(t) is None]
+    if missing:
+        pytest.skip(f"no {' or '.join(missing)} to build the native loader")
+    out = tmp_path_factory.mktemp("native")
+    for name in ("Makefile", "frido_native.cpp"):
+        shutil.copy(os.path.join(native, name), out / name)
+    r = subprocess.run(["make", "-C", str(out), "libfrido_native.so"],
+                       capture_output=True, text=True)
+    if r.returncode and ("jpeglib.h" in r.stderr or "-ljpeg" in r.stderr):
+        pytest.skip(f"no libjpeg to build the native loader: {r.stderr}")
+    assert r.returncode == 0, r.stdout + r.stderr
+    return str(out / "libfrido_native.so")
+
+
 @pytest.mark.parametrize("flip", [False, True])
 @pytest.mark.parametrize("method", METHODS)
-def test_pixels_equal_native_loader(method, flip):
+def test_pixels_equal_native_loader(method, flip, native_library,
+                                    monkeypatch):
     """The port's resize against the native loader's float path on the
     committed JPEG fixtures (same libjpeg decode on both sides)."""
-    if not nl.available():
-        pytest.skip("the native loader's library does not build here")
+    monkeypatch.delenv("FRIDO_NATIVE_LOADER", raising=False)
+    monkeypatch.setattr(nl, "_SO", native_library)
+    monkeypatch.setattr(nl, "_lib", None)
+    monkeypatch.setattr(nl, "_build_failed", False)
+    assert nl.available()
     for name, *_ in SPECS:
         path = os.path.join(FIXTURES, name)
         img = np.asarray(Image.open(path).convert("RGB"))

@@ -45,7 +45,8 @@ torch.set_num_threads(2)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 T2I = REPO / "configs" / "frido" / "t2i" / "frido_f16f8_coco.yaml"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "frido_tpu", "regex", "PIL"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "h5py", "frido_tpu",
+             "regex", "PIL"}
 # files that may import PIL inside a function
 PIL_IN_FUNCTIONS = {"data/image_io.py", "tools/make_mini_coco.py",
                     "tools/make_glyphs.py"}
@@ -102,7 +103,11 @@ def test_port_imports_no_jax():
             "eval/fid.py", "eval/metrics.py", "cli/eval_fid.py",
             "cli/eval_recon.py", "cli/train_msvqgan.py", "parallel/mesh.py",
             "parallel/tp.py", "parallel/fsdp.py", "training/image_logger.py",
-            "tools/dryrun_multichip.py", "tools/make_glyphs.py"} <= names
+            "tools/dryrun_multichip.py", "tools/make_glyphs.py",
+            "io/jax_export.py", "tools/import_jax_run.py",
+            "tools/jax_import_check.py", "tools/preprocess_vg_sg2im.py",
+            "tools/preprocess_vg_to_sg.py",
+            "tools/convert_vg_to_coco_style.py"} <= names
     pil_ok = {REPO / "frido_tpu_torch" / f for f in PIL_IN_FUNCTIONS}
     bad = {str(f.relative_to(REPO)): sorted(
                set(_imported_roots(f)) & (FORBIDDEN - {"PIL"} if f in pil_ok
@@ -111,6 +116,16 @@ def test_port_imports_no_jax():
     assert not {k: v for k, v in bad.items() if v}
     assert all("PIL" in set(_imported_roots(f)) for f in pil_ok)
     assert not any("PIL" in set(_module_level_roots(f)) for f in pil_ok)
+
+
+def test_exporter_imports_no_torch_and_no_port():
+    """``tools/export_jax_checkpoint.py`` runs where the JAX package is
+    (the TPU host): it imports numpy and the JAX package's checkpoint
+    module, and neither torch nor the port."""
+    path = REPO / "tools" / "export_jax_checkpoint.py"
+    roots = set(_imported_roots(path))
+    assert "frido_tpu" in roots and "numpy" in roots
+    assert not roots & {"torch", "frido_tpu_torch"}
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
