@@ -70,15 +70,19 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 6. training: every distinct kernel call of one all-kernel t2i train step and of one GAN
    step, forward as in 5 and, where it takes a gradient, its gradient
    against the plain version's autograd; the t2i model's diffusion
-   training (2 warm-up and 5 timed steps) in both configurations and one
-   fp32 step, and the MS-VQGAN's GAN training (2 + 3) in both, each with
+   training (2 warm-up and 3 timed steps) in both configurations and one
+   fp32 step, and the MS-VQGAN's GAN training (2 + 2) in both, each with
    its launches per step held to the architecture's (the backward
    recomputes through the plain versions and launches nothing), img/s,
-   step seconds, peak memory above the model and a profiled step; LPIPS
+   step seconds, peak memory above the model and a profiled step (the
+   GAN's in the default configuration only); LPIPS
    with seeded weights at the GAN's batch, card against CPU; the t2i
-   step with ``fsdp=True`` at world size 1 (a one-rank NCCL group)
-   bit for bit the replicated step, deterministic algorithms on, after
-   a control that the replicated step repeats bit for bit; every
+   step with ``fsdp=True`` at world size 1 (a one-rank NCCL group: the
+   per-unit gathers and reduce-scatters over a group of one, counted)
+   bit for bit the replicated step, with and without ``remat``,
+   deterministic algorithms on, after a control that the replicated step
+   repeats bit for bit, each mode's step seconds, peak allocation and
+   the units' counters printed; every
    distinct kernel site a tensor-parallel rank at n_model 2 and 4 runs
    in that train step and in the fp32 first stage (each 3x3 conv and
    fused prologue at cout / n_model; ``parallel/tp.py``), checked and
@@ -132,7 +136,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    frido_tpu_torch.cli.main -b configs/frido/t2i/frido_f16f8_coco.yaml -t
    --bf16_train`` (NCCL at world size 1), the config's data section
    pointed at the tree, 3 steps default and 2 all-kernel, each with its
-   test pass (DDIM 20, one test batch of 32, PNGs); launches per step held
+   test pass (DDIM 10, one test batch of 32, PNGs); launches per step held
    to the architecture's (the CLI prints its counts, the image log's
    encode and decode at step 3 beside); set-up seconds, step seconds,
    training img/s, the loader wait share, peak memory above the model,
@@ -163,7 +167,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    each config's batch size, each sample card against CPU;
 18. with two cards or more, ``tools/dryrun_multichip.py --full`` under
    torchrun on min(4, count) of them (NCCL): the four checks of the JAX
-   dry run at full t2i width; with one card a line says it was not run;
+   dry run at full t2i width, checks 1 and 2 with each rank's peak full
+   parameter and gradient bytes and peak allocation; with one card a
+   line says it was not run;
 19. (run before 11) the rest of the denoiser, two models built from
    dicts at the t2i UNet's widths (no config sets these options):
    ddpm-pixel, a pixel-space DDPM at 64^2 x 3 (GroupNorm ResBlocks with
@@ -261,6 +267,7 @@ from frido_tpu_torch.ops.cuda.norm import (  # noqa: E402
     group_norm, group_norm_plain, group_norm_plan)
 from frido_tpu_torch.ops.cuda.vq import (  # noqa: E402
     vq_argmin, vq_argmin_plain, vq_plan)
+from frido_tpu_torch.parallel import fsdp as fsdp_units  # noqa: E402
 from frido_tpu_torch.schedules import DDIMSchedule  # noqa: E402
 from frido_tpu_torch.training import (  # noqa: E402
     optim, trainer, vqgan_trainer)
@@ -349,7 +356,7 @@ PATHS = {
                      sampler="plms", eta=0.0, steps=20, all_kernel_steps=10,
                      arch=CLIP_ARCH, cfg_batched=True),
 }
-PROFILE_STEPS = 4   # a short chain under torch.profiler, for the breakdown
+PROFILE_STEPS = 2   # a short chain under torch.profiler, for the breakdown
 # the samplers' toy phase: the toy schedule cut to 40 timesteps (the
 # vanilla chain runs all of them), 4 steps for the others
 TOY_TIMESTEPS = 40
@@ -439,7 +446,7 @@ GAN_LR = optim.scaled_learning_rate(
     _MSVQ_CFG["model"]["base_learning_rate"], GAN_BATCH, 1)
 GAN_DISC_START = _MSVQ_CFG["model"]["params"]["lossconfig"]["params"][
     "disc_start"]
-TRAIN_STEPS, GAN_STEPS = (2, 5), (2, 3)
+TRAIN_STEPS, GAN_STEPS = (2, 3), (2, 2)     # (warm-up, timed) steps
 TOY_LR = 1e-3
 TOY_GAN_LOSS = dict(disc_start=1, disc_num_layers=2, disc_weight=0.8,
                     perceptual_weight=0.0)
@@ -498,7 +505,7 @@ LPIPS_ATOL = 1e-3
 # 4:4:4 planes to the plane bound. The image pipeline on the card against the CPU on the
 # same uint8 pixels: 1e-5 (fp32 matmuls in another order, of values up to
 # 255 / 127.5). The tree: 64 records a split. The training CLI: 3 steps
-# default (then one resumed), 2 all-kernel; its test pass DDIM 20 steps on
+# default (then one resumed), 2 all-kernel; its test pass DDIM 10 steps on
 # one test batch. Dataset sampling: PLMS 20, batches of 4, 8 samples of
 # each of two shards. A resumed train loader: its batches equal the
 # uninterrupted loader's exactly (the same decodes and pixel work on the
@@ -524,7 +531,7 @@ PIPELINE_ATOL = 1e-5
 TREE_IMAGES = 64
 DATA_EPOCHS = 3
 CLI_STEPS = {"default": 3, "all-kernel": 2}
-CLI_TEST_STEPS = 20
+CLI_TEST_STEPS = 10
 CLI_TIMEOUT = 420
 DATASET_BATCH, DATASET_STEPS, DATASET_SAMPLES = 4, 20, 8
 EVAL_IMAGES = 4
@@ -545,6 +552,13 @@ LOG_CAPTIONS = ("a red double-decker bus on a wet street at night",
                 "", "a man riding a wave on top of a surfboard")
 TP_SIZES = (2, 4)
 FSDP_STEPS = 2
+# profile one more remat step of the replicated and fsdp modes (the host
+# ops too): the probe that placed fsdp remat's time, run as
+#   python -c "import chip_smoke as cs; cs.FSDP_STEPS = 5; \
+#     cs.FSDP_PROFILE = True; card = cs.setup(); \
+#     cs.fsdp_phase(card, cs.build_main_model(cs.T2I))"
+# off here, for the script's time limit (a trace's parse is slow)
+FSDP_PROFILE = False
 DRYRUN_TIMEOUT = 900
 VG_IMAGES, OI_IMAGES = 24, 8
 
@@ -1574,7 +1588,7 @@ def unet_tokens(model):
     the UNet's down- and upsamples (resampling ResBlocks included)."""
     side = model.image_size
     tokens = []
-    for _, layers in model.model.diffusion_model._trunk():
+    for _, _, layers in model.model.diffusion_model._blocks():
         for _, mod in layers:
             if isinstance(mod, UNetDownsample) or (
                     isinstance(mod, ResBlock) and mod.down):
@@ -1883,7 +1897,8 @@ def forward_with_aux_phase(card, model, label):
     """``MSFPNVQModel.forward_with_aux`` of the MS-VQGAN config at batch 4
     in the current configuration: one encode and three decodes (the image
     and the two aux images), launches held to the architecture's; the
-    outputs checked; the time of a second run, peak memory, a profile."""
+    outputs checked; the time of a second run, peak memory, a profile
+    (all-kernel)."""
     all_kernel = label == "all-kernel"
     name = f"MSFPNVQModel.forward_with_aux, {label}"
     arch = check_first_stage_arch(model, T2I_ENCODE_ARCH, "MS-VQGAN")
@@ -1915,7 +1930,8 @@ def forward_with_aux_phase(card, model, label):
         f"{secs2:.4f} s (first / second run), peak device memory above "
         f"the model {gib:.3f} GiB, image std {spreads}, codebook loss "
         f"{loss.item():.4e}, launches {launches}")
-    profile_once(run, name)
+    if all_kernel:   # the default's ~100k launches: the GAN step profiles it
+        profile_once(run, name)
 
 
 # ---------------------------------------------------------------------------
@@ -2344,7 +2360,8 @@ def gan_training_phase(card, model, loss, label, steps):
     are live, in the current configuration: launches per step held to the
     architecture's (one encode and three decodes of forward_with_aux; the
     discriminator's 4x4 convs and BatchNorms are plain); finite logs;
-    img/s, step seconds, peak memory above the model, a profiled step."""
+    img/s, step seconds, peak memory above the model, a profiled step in
+    the default configuration."""
     all_kernel = label == "all-kernel"
     warm, timed_n = steps
     name = f"MS-VQGAN GAN training, {label}, fp32"
@@ -2377,7 +2394,8 @@ def gan_training_phase(card, model, loss, label, steps):
         f"{GAN_BATCH * len(step_s) / sum(step_s):.3f} img/s; peak device "
         f"memory above the model {peak_gib:.2f} GiB; launches per step "
         f"{launches}")
-    profile_once(lambda: tr.train_step(x), f"{name}, one step")
+    if not all_kernel:   # ~120k launches a step: the trace's parse is slow
+        profile_once(lambda: tr.train_step(x), f"{name}, one step")
     del tr
     torch.cuda.empty_cache()
     return launches
@@ -3680,7 +3698,20 @@ def fsdp_phase(card, model):
     model, under a one-rank NCCL group, with PyTorch's deterministic
     algorithms on (cuDNN's and the embedding's backward otherwise sum in
     an order of their own from run to run). The replicated step runs
-    twice first: the control that the step itself repeats bit for bit."""
+    twice first: the control that the step itself repeats bit for bit.
+    Then the same with ``remat``, and the replicated ``remat`` step again
+    after it (a control of the order). Under ``fsdp`` the per-unit path runs
+    over a group of one (``parallel/fsdp.py``: each block gathered when
+    called and before its backward, its gradients reduce-scattered in the
+    backward): it fails unless the units gathered and reduce-scattered.
+    Each mode's step seconds, peak allocation above the allocation at its
+    start (the model, its earlier snapshots and the new trainer), peak
+    reserved, the allocator's retries and device mallocs, train state a
+    rank and the units' counters are printed with the card. The ``remat``
+    modes take one more step, with FSDP_PROFILE under torch.profiler
+    (the first two), whose heaviest kernels and host ops say where
+    ``fsdp remat``'s time goes. Beside them, the 4-rank reckoning
+    (:func:`fsdp_reckoning`)."""
     import socket
 
     import torch.distributed as tdist
@@ -3693,35 +3724,80 @@ def fsdp_phase(card, model):
     cudnn_det = torch.backends.cudnn.deterministic
     torch.use_deterministic_algorithms(True, warn_only=True)
     torch.backends.cudnn.deterministic = True
+    # (mode, fsdp, remat, the mode it must equal bit for bit)
+    modes = [("replicated", False, False, None),
+             ("replicated again", False, False, "replicated"),
+             ("fsdp", True, False, "replicated"),
+             ("replicated remat", False, True, None),
+             ("fsdp remat", True, True, "replicated remat"),
+             ("replicated remat again", False, True, "replicated remat")]
     try:
         init = {k: v.detach().clone() for k, v in model.state_dict().items()}
         batch = train_batch(TRAIN_BATCH, 80)
         snaps, info = {}, {}
-        for mode in ("replicated", "replicated again", "--fsdp"):
+        for mode, fsdp, remat, ref in modes:
             model.load_state_dict(init)
             params = [p for _, p in trainer.trainable_parameters(model)]
             tr = trainer.DiffusionTrainer(
                 model, optim.build_optimizer(params, TRAIN_LR),
-                compute_dtype=torch.bfloat16, rank=0, world_size=1,
-                fsdp=mode == "--fsdp")
+                remat=remat, compute_dtype=torch.bfloat16, rank=0,
+                world_size=1, fsdp=fsdp)
             gen = torch.Generator()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            stats0 = torch.cuda.memory_stats()
             secs = []
             for i in range(FSDP_STEPS):
                 gen.manual_seed(90 + i)
+                last = torch.cuda.memory_stats()
                 secs.append(timed(lambda: tr.train_step(batch, gen))[1])
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            stats = torch.cuda.memory_stats()
+            counters = tr.fsdp_counters()
+            units = tr.sharding.units if tr.sharding is not None else []
+            if remat:       # one more step, profiled but in the control
+                gen.manual_seed(90 + FSDP_STEPS)
+                if mode.endswith("again") or not FSDP_PROFILE:
+                    tr.train_step(batch, gen)
+                else:
+                    profile_once(lambda: tr.train_step(batch, gen),
+                                 f"fsdp phase, {mode}, one step", top=6,
+                                 host=8)
+            info[mode] = {"step_s": rounded(secs, 4),
+                          "peak_gib_above_start": round(peak, 3),
+                          "peak_reserved_gib": round(
+                              torch.cuda.max_memory_reserved() / 2 ** 30, 3),
+                          **{k: stats.get(k, 0) - stats0.get(k, 0) for k in (
+                              "num_alloc_retries", "num_device_alloc",
+                              "num_device_free")},
+                          "last_step_device_alloc": stats.get(
+                              "num_device_alloc", 0) - last.get(
+                              "num_device_alloc", 0),
+                          "state_gib": round(tr.state_bytes() / 2 ** 30, 3),
+                          "units": len(units),
+                          "sharded_leaves": sum(len(u.params)
+                                                for u in units),
+                          **counters}
+            if fsdp and not (counters.get("gathers", 0) > 0 and
+                             counters.get("reduce_scatters", 0) > 0):
+                raise AssertionError(f"fsdp phase: {mode} ran no unit "
+                                     f"collective: {counters}")
             snaps[mode] = snapshot(tr)
-            info[mode] = (rounded(secs, 4), tr.state_bytes() / 2 ** 30,
-                          tr.sharding is not None)
+            if tr.sharding is not None:
+                tr.sharding.close()
             del tr
             torch.cuda.empty_cache()
-            if mode != "replicated":
+            if ref is not None:
                 bad = [part for part, xs in snaps[mode].items()
                        if not all(torch.equal(x, y) for x, y in
-                                  zip(xs, snaps["replicated"][part]))]
+                                  zip(xs, snaps[ref][part]))]
                 if bad:
                     raise AssertionError(f"fsdp phase: {mode} differs from "
-                                         f"the replicated step in {bad}")
+                                         f"{ref} in {bad}")
                 del snaps[mode]
+            if mode == "fsdp":
+                del snaps["replicated"]
         del snaps, init
     finally:
         torch.use_deterministic_algorithms(False)
@@ -3731,8 +3807,51 @@ def fsdp_phase(card, model):
     log(f"fsdp on {card}: the t2i step at batch {TRAIN_BATCH}, bf16, "
         f"{FSDP_STEPS} steps, world size 1 (NCCL group), deterministic "
         f"algorithms: replicated twice bit for bit (the control), fsdp=True "
-        f"bit for bit the replicated (weights, EMA, Adam moments); step "
-        f"seconds, train state GiB a rank, sharded: {info}")
+        f"(per-unit gathers and reduce-scatters over a group of one) bit "
+        f"for bit the replicated (weights, EMA, Adam moments), with and "
+        f"without remat; the replicated remat step again after fsdp remat "
+        f"(a control of the order); remat modes one more step")
+    for mode, row in info.items():
+        log(f"fsdp on {card}: {mode}: {json.dumps(row)}")
+    log(f"fsdp, reckoned from the t2i shapes for 4 data ranks (not "
+        f"measured): {json.dumps(fsdp_reckoning(model, 4))}")
+
+
+def fsdp_reckoning(model, n_data):
+    """What a rank holds at ``n_data`` data ranks, fp32, from the shapes
+    alone: the parameters, the trainable ones (all but the first stage),
+    the data-sharded leaves and units of the data rule; the full
+    parameters and trainable gradients a whole-model gather held at once
+    (and its one gather and reduce-scatter a sharded leaf) against the
+    units' bound: the rank's parts plus two of the largest unit in
+    flight (``tests/test_torch_fsdp_units.py`` holds the measured peaks
+    to it)."""
+    params = dict(model.named_parameters())
+    trainable = {n for n, _ in trainer.trainable_parameters(model)}
+    dims = fsdp_units.data_dims_for(model, n_data)
+    plan = fsdp_units.unit_plan(model, dims)
+    size = {n: p.numel() * p.element_size() for n, p in params.items()}
+    part = {n: b // (n_data if n in dims else 1) for n, b in size.items()}
+    units = {o: fsdp_units.resident_bytes(p for _, _, p, _ in ents)
+             for o, ents in plan.items()}
+    largest = max(units, key=units.get)
+    gib = 2 ** 30
+    return {
+        "n_data": n_data,
+        "params": sum(p.numel() for p in params.values()),
+        "trainable": sum(params[n].numel() for n in trainable),
+        "params_gib": round(sum(size.values()) / gib, 4),
+        "trainable_gib": round(sum(size[n] for n in trainable) / gib, 4),
+        "sharded_leaves": len(dims),
+        "sharded_trainable_leaves": len(set(dims) & trainable),
+        "units": len(plan), "largest_unit": largest,
+        "largest_unit_gib": round(units[largest] / gib, 4),
+        "whole_model_full_params_and_grads_gib": round(
+            (sum(size.values()) + sum(size[n] for n in trainable)) / gib, 4),
+        "units_bound_params_gib": round(
+            (sum(part.values()) + 2 * units[largest]) / gib, 4),
+        "units_bound_grads_gib": round(
+            (sum(part[n] for n in trainable) + 2 * units[largest]) / gib, 4)}
 
 
 def cli_image_log_check(name, run_dir, dots):
@@ -4215,20 +4334,21 @@ def union_seconds(events):
     return busy / 1e6
 
 
-def profile_once(run, name, top=5):
+def profile_once(run, name, top=5, host=0):
     """Device busy time and idle share of one ``run()`` under
-    torch.profiler, and its heaviest kernels. Busy is the union of the
-    kernels' intervals, so kernels that overlap count once; the profiler
-    slows the host, so the idle share is an upper bound. The wall time
-    ends in a synchronise."""
+    torch.profiler, its heaviest kernels and (``host`` > 0) its heaviest
+    host ops by self time. Busy is the union of the kernels' intervals,
+    so kernels that overlap count once; the profiler slows the host, so
+    the idle share is an upper bound. The wall time ends in a
+    synchronise."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall = timed(run)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    averages = prof.key_averages()
+    kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
     if not kernels:
         log(f"profile ({name}): torch.profiler recorded no device time; "
             f"device busy share not measured")
@@ -4242,6 +4362,10 @@ def profile_once(run, name, top=5):
         f"{sum(e.count for e in kernels)} kernel launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:6d}x {e.key[:90]}")
+    ops = [e for e in averages if e.device_type == DeviceType.CPU]
+    for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:host]:
+        log(f"  host {e.self_cpu_time_total / 1e3:9.3f} ms "
             f"{e.count:6d}x {e.key[:90]}")
 
 

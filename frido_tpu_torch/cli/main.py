@@ -43,11 +43,19 @@ shuffles: the loader draws the plans of every batch before the cursor
 again, without their pixels.
 
 ``--fsdp`` shards the parameters, both AdamW moments and the EMA over the
-data-parallel ranks (``parallel/fsdp.py``, ZeRO-3 style: the parameters
-gathered before each step's forward, the mean gradients reduce-scattered
-after its backward, AdamW and the EMA on the local parts); the layout is
-data-only (no tensor parallelism), as in the JAX script. Its checkpoints
-are gathered and written whole by rank 0, so a ``--fsdp`` run's ``last``
+data-parallel ranks (``parallel/fsdp.py``, ZeRO-3 style: each block's
+parameters gathered when it is called, one ``all_gather_into_tensor`` a
+block, and again before its backward; its mean gradients reduce-scattered
+inside the backward, one ``reduce_scatter_tensor`` a block; AdamW and the
+EMA on the local parts), so no rank holds every full parameter or
+gradient at once; the layout is data-only (no tensor parallelism), as in
+the JAX script. Every forward then runs on every rank: validation, the
+image log (rank 0 writes it) and the test pass (the loader gives every
+rank as many batches). The summary
+adds each rank's peak full-parameter and full-gradient GiB. With gloo
+ranks (``--device cpu``) or one card a rank (NCCL), also at world size 1,
+where the step is the replicated one bit for bit. Its checkpoints are
+gathered and written whole by rank 0, so a ``--fsdp`` run's ``last``
 resumes without ``--fsdp`` and the reverse.
 
 Image logging (``training/image_logger.py``), as the JAX script does it:
@@ -149,8 +157,10 @@ def get_parser() -> argparse.ArgumentParser:
                    const=True,
                    help="shard the parameters, Adam moments and EMA over "
                         "the data-parallel ranks (ZeRO-3 style; "
-                        "parallel/fsdp.py); the numerics of replicated "
-                        "data parallelism")
+                        "parallel/fsdp.py): each block gathered when it "
+                        "runs and its gradients reduce-scattered in the "
+                        "backward, one collective a block; the numerics "
+                        "of replicated data parallelism")
     p.add_argument("--uncond_gen_mode", type=str2bool, default=False,
                    nargs="?", const=True,
                    help="the test pass's seed is seed + rank")
@@ -340,14 +350,17 @@ def _run_logdir(args, name: str, world: dist.World):
     return logdir
 
 
-def _scale_by_std(model, images: torch.Tensor, world: dist.World):
+def _scale_by_std(model, images: torch.Tensor, world: dist.World,
+                  every_rank: bool = False):
     """Per-stage 1/std of the first global batch's latents, computed on
-    rank 0 from every rank's rows and shared."""
+    rank 0 (on every rank with ``every_rank``: FSDP units gather in the
+    encode) from every rank's rows, and rank 0's shared."""
     if world.world_size > 1:
         parts = [torch.empty_like(images) for _ in range(world.world_size)]
         torch.distributed.all_gather(parts, images.contiguous())
         images = torch.cat(parts)
-    box = [model.init_scale_by_std(images) if world.main else None]
+    box = [model.init_scale_by_std(images)
+           if world.main or every_rank else None]
     if world.world_size > 1:
         torch.distributed.broadcast_object_list(box, src=0)
     model.scale_factors = np.asarray(box[0], np.float32)
@@ -443,6 +456,8 @@ def _train(args, unknown, world, device, t_start):
         model, opt, use_ema=True, remat=use_remat,
         compute_dtype=torch.bfloat16 if args.bf16_train else None,
         rank=world.rank, world_size=world.world_size, fsdp=args.fsdp)
+    # FSDP units gather in every forward: every rank runs them alike
+    units = bool(tr.sharding is not None and tr.sharding.units)
 
     sf_path = os.path.join(ckptdir, "scale_factors.json")
     start_step = 0
@@ -464,9 +479,8 @@ def _train(args, unknown, world, device, t_start):
                 model.scale_factors = np.asarray(json.load(f), np.float32)
     elif getattr(model, "scale_by_std", False):
         first = peek_first_batch(data, args.seed)
-        with tr.weights():
-            sf = _scale_by_std(model, batch_to_arrays(model, first)["image"],
-                               world)
+        sf = _scale_by_std(model, batch_to_arrays(model, first)["image"],
+                           world, every_rank=units)
         if world.main:
             with open(sf_path, "w") as f:
                 json.dump(sf.tolist(), f)
@@ -491,18 +505,18 @@ def _train(args, unknown, world, device, t_start):
 
     def log_images(batch, step, split):
         """Rank 0 writes ``log_images`` of ``batch`` under the EMA
-        weights (every rank enters the weights: a collective under
-        ``--fsdp``); a logging error is printed and the run goes on."""
+        weights (under ``--fsdp`` every rank computes it: the units gather
+        in it); a logging error is printed and the run goes on."""
         t0 = time.perf_counter()
         with tr.weights(ema=True):
-            if world.main:
+            if world.main or units:
                 try:
                     img_logger.log_train(
                         model, batch, step, split=split,
                         dataset=data.datasets.get(
                             "validation" if split == "val" else "train"),
                         generator=torch.Generator(device=device).manual_seed(
-                            args.seed))
+                            args.seed), write=world.main)
                 except Exception as e:  # logging must never kill a run
                     print(f"{split} image logging failed: {e!r}")
         image_log_seconds.append(time.perf_counter() - t0)
@@ -592,6 +606,7 @@ def _train(args, unknown, world, device, t_start):
     setup_seconds = time.perf_counter() - t_start
     launches_before = launch_counts()
     step_seconds, waits = [], []
+    fsdp_peaks = {"peak_full_param_bytes": 0, "peak_full_grad_bytes": 0}
     # the log window; checkpoint writes and validation are not step time
     window = {"t": time.perf_counter(), "wait": 0.0, "skip": 0.0}
     try:
@@ -609,6 +624,9 @@ def _train(args, unknown, world, device, t_start):
                 arrays = batch_to_arrays(model, batch)
                 gen.manual_seed(step_seed(args.seed, step))
                 logs = tr.train_step(arrays, gen)
+                counters = tr.fsdp_counters()
+                for k in fsdp_peaks:
+                    fsdp_peaks[k] = max(fsdp_peaks[k], counters.get(k, 0))
                 step += 1
                 cursor["batch"] += 1
                 if step % args.log_every_steps == 0:
@@ -649,7 +667,11 @@ def _train(args, unknown, world, device, t_start):
                "device": str(device), "launches": launches,
                "checkpoint_seconds": ckpt_seconds,
                "image_log_seconds": image_log_seconds, "fsdp": args.fsdp,
-               "state_gib_per_rank": tr.state_bytes() / 2 ** 30}
+               "state_gib_per_rank": tr.state_bytes() / 2 ** 30,
+               "peak_full_param_gib": fsdp_peaks["peak_full_param_bytes"]
+               / 2 ** 30,
+               "peak_full_grad_gib": fsdp_peaks["peak_full_grad_bytes"]
+               / 2 ** 30}
     if device.type == "cuda":
         sync()
         summary["peak_gib_above_model"] = (
@@ -670,7 +692,9 @@ def _train(args, unknown, world, device, t_start):
 @torch.no_grad()
 def run_test(args, model, data, logdir, world, device) -> Dict[str, Any]:
     """DDIM (``--test_steps``, bf16 UNet) over this rank's rows of the
-    test split; PNGs of the samples and the inputs by ``file_name``."""
+    test split; PNGs of the samples and the inputs by ``file_name``. Every
+    rank runs as many batches (the loader cuts a last batch that does not
+    split over the ranks), so FSDP's units gather alike on every rank."""
     out_dir = os.path.join(logdir, "test")
     for sub in ("sample", "inputs"):
         os.makedirs(os.path.join(out_dir, sub), exist_ok=True)

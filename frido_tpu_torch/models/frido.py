@@ -71,6 +71,7 @@ from frido_tpu_torch.diffusion import samplers
 from frido_tpu_torch.nn.layers import seed_init_
 from frido_tpu_torch.ops.image import to_nchw, to_nhwc
 from frido_tpu_torch.ops.tiling import tiled_apply
+from frido_tpu_torch.parallel import fsdp
 from frido_tpu_torch.schedules import DiffusionSchedule
 
 _FRIDO_DEFAULTS: Dict[str, Any] = dict(
@@ -141,7 +142,10 @@ class DiffusionWrapper(nn.Module):
         return unet(x, t, context, stage, spade_pre)
 
     def spade_tables(self, x_cond: torch.Tensor, stage: int):
-        return self.diffusion_model.spade_tables(x_cond, stage)
+        """The UNet's SPADE tables, each block gathered for its read where
+        the model is sharded (``parallel/fsdp.py``)."""
+        return self.diffusion_model.spade_tables(x_cond, stage,
+                                                 scope=fsdp.gathered)
 
 
 class FridoDiffusion(nn.Module):

@@ -211,6 +211,8 @@ class Embed(nn.Module):
 
     def __init__(self, num_embeddings: int, features: int, device=None):
         super().__init__()
+        # the table's rows, also when the weight holds a TP or FSDP part
+        self.num_embeddings = num_embeddings
         self.weight = nn.Parameter(
             torch.empty(num_embeddings, features, device=device))
 

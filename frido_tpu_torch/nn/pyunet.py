@@ -16,6 +16,12 @@ head, or the ``n_embed`` codebook-id predictor. ``spade_tables``
 precomputes every SPADE site's (gamma, beta) of a stage's trunk once per
 stage (``:518-567``).
 
+Each block of the trunk (``input_blocks.i``, ``middle_block``,
+``output_blocks.i``) is a :class:`UNetBlock` whose layers run as one call:
+the unit FSDP gathers (``parallel/fsdp.py``); the PyUNet itself is the
+unit of the rest (time and stage embeddings, the split head, the output
+head).
+
 Module names follow the original torch key tree (``input_blocks.1.0.
 in_layers.2.weight``; ``input_blocks_expert.1.…`` for the stage experts),
 so the JAX params map onto this module mechanically
@@ -32,6 +38,7 @@ dropout is the identity, as in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -239,6 +246,24 @@ class AttentionBlock(nn.Module):
         return x + self.proj_out(a).reshape(b, c, h, w)
 
 
+class UNetBlock(nn.ModuleList):
+    """One block of the trunk: its layers (keys ``<block>.<j>``) run in
+    one call, each with its SPADE tables from ``pres`` (or in line)."""
+
+    def forward(self, h, emb, context=None, h_cond=None, pres=None):
+        for j, mod in enumerate(self):
+            pre = pres[j] if pres is not None else None
+            if isinstance(mod, ResBlock):
+                h = mod(h, emb, h_cond, pre)
+            elif isinstance(mod, SpatialTransformer):
+                h = mod(h, context, h_cond, pre)
+            elif isinstance(mod, AttentionBlock):
+                h = mod(h, h_cond, pre)
+            else:
+                h = mod(h)
+        return h
+
+
 def _heads_for(ch: int, num_heads: int, num_head_channels: int, legacy: bool,
                use_spatial_transformer: bool) -> Tuple[int, int]:
     """The head count and width of an attention site (``pyunet.py:
@@ -361,7 +386,7 @@ class PyUNetModel(nn.Module):
 
             input_blocks = []
             if not use_split_head:
-                input_blocks.append(nn.ModuleList([Conv2d(
+                input_blocks.append(UNetBlock([Conv2d(
                     in_channels, mc, 3, padding=1, device=device)]))
             chans = [mc]
             ch, ds = mc, 1
@@ -371,16 +396,16 @@ class PyUNetModel(nn.Module):
                     ch = mult * mc
                     if ds in attention_resolutions:
                         layers.append(attn(ch))
-                    input_blocks.append(nn.ModuleList(layers))
+                    input_blocks.append(UNetBlock(layers))
                     chans.append(ch)
                 if level != len(channel_mult) - 1:
-                    input_blocks.append(nn.ModuleList([
+                    input_blocks.append(UNetBlock([
                         res(ch, ch, down=True) if resblock_updown else
                         UNetDownsample(ch, conv_resample, device)]))
                     chans.append(ch)
                     ds *= 2
-            middle_block = nn.ModuleList([res(ch, ch), attn(ch),
-                                          res(ch, ch)])
+            middle_block = UNetBlock([res(ch, ch), attn(ch),
+                                      res(ch, ch)])
             output_blocks = []
             for level, mult in list(enumerate(channel_mult))[::-1]:
                 for i in range(num_res_blocks + 1):
@@ -393,7 +418,7 @@ class PyUNetModel(nn.Module):
                             res(ch, ch, up=True) if resblock_updown else
                             UNetUpsample(ch, conv_resample, device))
                         ds //= 2
-                    output_blocks.append(nn.ModuleList(layers))
+                    output_blocks.append(UNetBlock(layers))
             return (nn.ModuleList(input_blocks), middle_block,
                     nn.ModuleList(output_blocks), ch)
 
@@ -426,9 +451,9 @@ class PyUNetModel(nn.Module):
                 "2": Conv2d(ch, out_channels, 3, padding=1, zero_init=True,
                             device=device)})
 
-    def _trunk(self, stage: int = 0):
-        """(group, [(site name, layer), ...]) for each block of the trunk
-        ``stage`` runs, in execution order; the group is
+    def _blocks(self, stage: int = 0):
+        """(group, block, [(site name, layer), ...]) for each block of the
+        trunk ``stage`` runs, in execution order; the group is
         ``input_blocks``, ``middle_block`` or ``output_blocks``."""
         for group in ("input_blocks", "middle_block", "output_blocks"):
             if self.use_stage_expert:
@@ -437,12 +462,12 @@ class PyUNetModel(nn.Module):
             else:
                 name, blocks = group, getattr(self, group)
             if group == "middle_block":
-                yield group, [(f"{name}.{j}", m) for j, m in
-                              enumerate(blocks)]
+                yield group, blocks, [(f"{name}.{j}", m) for j, m in
+                                      enumerate(blocks)]
                 continue
             for i, layers in enumerate(blocks):
-                yield group, [(f"{name}.{i}.{j}", m) for j, m in
-                              enumerate(layers)]
+                yield group, layers, [(f"{name}.{i}.{j}", m) for j, m in
+                                      enumerate(layers)]
 
     def _cond_dim(self, stage: int) -> int:
         """Channels of the previous stages that feed SPADE at ``stage``."""
@@ -450,31 +475,37 @@ class PyUNetModel(nn.Module):
             return 0
         return sum(self.split[:stage])
 
-    def spade_tables(self, x_cond: torch.Tensor, stage: int
-                     ) -> Optional[Dict[str, Any]]:
+    def spade_tables(self, x_cond: torch.Tensor, stage: int,
+                     scope=None) -> Optional[Dict[str, Any]]:
         """Every SPADE site's (gamma, beta) of the trunk ``stage`` runs,
         from the previous stages' channels ``x_cond`` [N, sum(split[:stage]),
         H, W], keyed by site; None without SPADE or at stage 0.
 
         Those channels are frozen for the whole stage during sampling, so
         the sampler computes the tables once per stage; the result equals
-        the in-line computation."""
+        the in-line computation. The tables read the weights outside a
+        forward: ``scope(module)``, where given, is the context in which
+        the model itself and then each block are read (sharded training
+        gathers them there)."""
         if self._cond_dim(stage) == 0:
             return None
-        h_cond = self.pre_input_cond_blocks[stage - 1][0](x_cond)
+        scope = scope or (lambda module: contextlib.nullcontext())
+        with scope(self):
+            h_cond = self.pre_input_cond_blocks[stage - 1][0](x_cond)
         hw = tuple(x_cond.shape[-2:])
         tables = {}
-        for _, layers in self._trunk(stage):
-            for site, mod in layers:
-                if isinstance(mod, (ResBlock, SpatialTransformer,
-                                    AttentionBlock)):
-                    tables[site] = mod.spade_tables(h_cond, hw)
-                if isinstance(mod, UNetDownsample) or (
-                        isinstance(mod, ResBlock) and mod.down):
-                    hw = (hw[0] // 2, hw[1] // 2)
-                elif isinstance(mod, UNetUpsample) or (
-                        isinstance(mod, ResBlock) and mod.up):
-                    hw = (hw[0] * 2, hw[1] * 2)
+        for _, block, layers in self._blocks(stage):
+            with scope(block):
+                for site, mod in layers:
+                    if isinstance(mod, (ResBlock, SpatialTransformer,
+                                        AttentionBlock)):
+                        tables[site] = mod.spade_tables(h_cond, hw)
+                    if isinstance(mod, UNetDownsample) or (
+                            isinstance(mod, ResBlock) and mod.down):
+                        hw = (hw[0] // 2, hw[1] // 2)
+                    elif isinstance(mod, UNetUpsample) or (
+                            isinstance(mod, ResBlock) and mod.up):
+                        hw = (hw[0] * 2, hw[1] * 2)
         return tables
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
@@ -516,19 +547,12 @@ class PyUNetModel(nn.Module):
         else:
             h, hs = x, []
 
-        for group, layers in self._trunk(stage):
+        for group, block, layers in self._blocks(stage):
             if group == "output_blocks":
                 h = torch.cat([h, hs.pop()], dim=1)
-            for site, mod in layers:
-                pre = spade_pre.get(site) if spade_pre is not None else None
-                if isinstance(mod, ResBlock):
-                    h = mod(h, emb, h_cond, pre)
-                elif isinstance(mod, SpatialTransformer):
-                    h = mod(h, context, h_cond, pre)
-                elif isinstance(mod, AttentionBlock):
-                    h = mod(h, h_cond, pre)
-                else:
-                    h = mod(h)
+            pres = (None if spade_pre is None else
+                    [spade_pre.get(site) for site, _ in layers])
+            h = block(h, emb, context, h_cond, pres)
             if group == "input_blocks":
                 hs.append(h)
 

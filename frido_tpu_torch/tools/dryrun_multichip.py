@@ -28,9 +28,14 @@ gradient at the first step), fp32 (TF32 off), it prints four checks:
    equals one process on the whole batch within ``SAMPLE_ATOL``, and the
    per-rank seeds (``mesh.fold_rng_per_device``) are all distinct.
 
-The tolerances are the JAX dry run's. :func:`run` returns the losses, the
-errors and (on rank 0) the full train states after checks 1 and 2, for a
-comparison against one process (``tests/test_torch_sharding.py``).
+Checks 1 and 2 also print each rank's peak bytes of full parameters and
+of full gradients (check 1: every parameter and trainable gradient of the
+rank's model shard, held whole; check 2: the FSDP units' counters,
+``parallel/fsdp.py``) and, on the card, ``torch.cuda.max_memory_allocated``
+of the step. The tolerances are the JAX dry run's. :func:`run` returns the
+losses, the errors, the peaks and (on rank 0) the full train states after
+checks 1 and 2, for a comparison against one process
+(``tests/test_torch_sharding.py``).
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ import torch.distributed as tdist
 from frido_tpu_torch.config import instantiate_from_config, load_yaml
 from frido_tpu_torch.io import checkpoint as ckpt_io
 from frido_tpu_torch.nn.layers import _Linearish
-from frido_tpu_torch.parallel import dist, mesh
+from frido_tpu_torch.parallel import dist, fsdp as fsdp_mod, mesh
 from frido_tpu_torch.training import optim, trainer as trainer_mod
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -118,7 +123,7 @@ def shapes(model) -> Dict[str, int]:
     cond = model.cond_stage_model
     return dict(side=model.first_stage_ddconfig["resolution"],
                 ctx=cond.max_seq_len,
-                vocab=cond.transformer.token_emb.weight.shape[0])
+                vocab=cond.transformer.token_emb.num_embeddings)
 
 
 def build(cfg: Dict[str, Any], device, seed: int = SEED):
@@ -151,6 +156,53 @@ def make_trainer(model, world: dist.World, n_model: int, fsdp: bool,
         model, optim.build_optimizer(params, LR), use_ema=True,
         rank=world.rank, world_size=world.world_size, n_model=n_model,
         fsdp=fsdp, min_size=min_size)
+
+
+def _peaks(tr) -> Dict[str, int]:
+    """This rank's peak full-parameter and full-gradient bytes in the last
+    step: the FSDP units' counters, or (no units) every parameter and
+    every trainable gradient, all held whole."""
+    c = tr.fsdp_counters()
+    if c:
+        return {"param": c["peak_full_param_bytes"],
+                "grad": c["peak_full_grad_bytes"]}
+    params = list(tr.model.parameters())
+    return {"param": fsdp_mod.resident_bytes(params),
+            "grad": fsdp_mod.resident_bytes(
+                [p for p in params if p.requires_grad])}
+
+
+def _per_rank(x: Dict[str, int], world: dist.World, device):
+    """``x`` of every rank (rank order), on every rank."""
+    keys = sorted(x)
+    t = torch.tensor([float(x[k]) for k in keys], dtype=torch.float64,
+                     device=device)
+    if world.world_size == 1:
+        rows = [t]
+    else:
+        rows = [torch.empty_like(t) for _ in range(world.world_size)]
+        tdist.all_gather(rows, t)
+    return [{k: int(v) for k, v in zip(keys, r.tolist())} for r in rows]
+
+
+def _measured_step(tr, batch, seed, world, device):
+    """:func:`step`, and every rank's peaks (with the card's peak
+    allocation on ``cuda``)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    loss = step(tr, batch, seed)
+    mine = _peaks(tr)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        mine["max_allocated"] = torch.cuda.max_memory_allocated(device)
+    return loss, _per_rank(mine, world, device)
+
+
+def _gib(rows) -> str:
+    return "; ".join(", ".join(f"{k} {v / 2 ** 30:.4g} GiB"
+                               for k, v in sorted(r.items()))
+                     for r in rows)
 
 
 def step(tr, batch, seed: int) -> float:
@@ -208,26 +260,29 @@ def run(world: dist.World, device, full: bool = False, log=print,
     dims = shapes(model)
     batch = make_batch(2 * n_data, 0, dims)
     tr = make_trainer(model, world, n_model, fsdp=False)
-    loss = step(tr, batch, 0)
+    loss, out["peaks_dp_tp"] = _measured_step(tr, batch, 0, world, device)
     if not math.isfinite(loss):
         raise AssertionError(f"{tag}: non-finite loss {loss}")
     out["loss"] = loss
     out["dp_tp_state"] = ckpt_io.train_state(tr)
     log(f"{tag}: one train step OK on {n_data}x{n_model} (data x model) "
-        f"layout, loss={loss:.4f}")
+        f"layout, loss={loss:.4f}; peak full bytes a rank: "
+        f"{_gib(out['peaks_dp_tp'])}")
     del tr, model
 
     # 2. FSDP x TP, min_size 1
     model = build(cfg, device)
     tr = make_trainer(model, world, n_model, fsdp=True)
-    loss_f = step(tr, batch, 0)
+    loss_f, out["peaks_fsdp_tp"] = _measured_step(tr, batch, 0, world,
+                                                  device)
     if not (math.isfinite(loss_f) and abs(loss_f - loss) < FSDP_ATOL):
         raise AssertionError(f"{tag}: FSDP loss {loss_f} vs {loss}")
     out["loss_fsdp"] = loss_f
     state = ckpt_io.train_state(tr)
     out["fsdp_tp_state"] = state
     log(f"{tag}: FSDP x TP train step OK, loss={loss_f:.4f} (matches "
-        f"replicated)")
+        f"replicated); peak full bytes a rank: "
+        f"{_gib(out['peaks_fsdp_tp'])}")
 
     # 3. save -> uninterrupted step; fresh model -> restore -> replay
     tmp = _shared_tmpdir(world)

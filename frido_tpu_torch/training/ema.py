@@ -7,9 +7,9 @@ parameters with the decay ramp ``min(decay, (1 + n) / (10 + n))``:
 ``s <- s - (1 - d) (s - p)``. ``scope()`` swaps the shadow into the module
 for the block and restores the trained weights after it: the JAX package's
 ``ema_full_params``. Under sharded state the shadow lives on the same parts
-as the parameters (``parallel/fsdp.py``); ``gather`` (name, part) -> the
-part gathered over the data ranks, which ``scope()`` swaps in, inside
-``Sharding.gathered()``.
+as the parameters (``parallel/fsdp.py``): ``scope()`` swaps the shadow's
+parts in, and each FSDP unit gathers them when it is called, block by
+block; nothing gathers the whole shadow.
 
 :func:`import_ema` reads the reference ``LitEma``'s flat buffer names out
 of a Lightning checkpoint (``model_ema.`` + the denoiser wrapper's
@@ -29,11 +29,9 @@ import torch.nn as nn
 class EMA:
     """Shadow of ``module``'s parameters, keyed by their names."""
 
-    def __init__(self, module: nn.Module, decay: float = 0.9999,
-                 gather=None):
+    def __init__(self, module: nn.Module, decay: float = 0.9999):
         self.module = module
         self.decay = decay
-        self.gather = gather
         self.num_updates = 0
         self.shadow: Dict[str, torch.Tensor] = {
             name: p.detach().clone() for name, p in module.named_parameters()}
@@ -61,9 +59,8 @@ class EMA:
         weights come back after it, also on an error."""
         shadow, params = self._pairs()
         saved = [p.data for p in params]
-        for name, p, s in zip(self.shadow, params, shadow):
-            full = s if self.gather is None else self.gather(name, s)
-            p.data = s.clone() if full is s else full
+        for p, s in zip(params, shadow):
+            p.data = s.clone()
         try:
             yield self.module
         finally:

@@ -37,12 +37,16 @@ class ImageLogger:
     def log_train(self, model, batch: Dict[str, Any], step: int,
                   split: str = "train", dataset=None,
                   generator: Optional[torch.Generator] = None,
-                  sample: bool = False) -> Dict[str, Any]:
+                  sample: bool = False, write: bool = True
+                  ) -> Dict[str, Any]:
         """``model.log_images`` of ``batch`` (its first ``max_images``) as
-        one grid a key; returns the logs."""
+        one grid a key (written with ``write``; a rank of a sharded model
+        computes the logs with the writer); returns the logs."""
         logs = model.log_images(batch, generator=generator,
                                 n=self.max_images, sample_flag=sample,
                                 dataset=dataset)
+        if not write:
+            return logs
         out = os.path.join(self.save_dir, split)
         os.makedirs(out, exist_ok=True)
         for key, val in logs.items():

@@ -35,12 +35,16 @@ sharded by ``parallel/fsdp.shard_model_`` before the EMA and AdamW's
 moments are made, so both live on the same parts as the parameters. The
 batch and the draws are the data index's rows (model ranks of a data row
 see the same rows); a tensor-parallel layer all-gathers its output
-channels in the forward (``parallel/tp.py``); with ``fsdp`` the step
-gathers the parameters before the forward and reduce-scatters the mean
-gradients after the backward (``Sharding.reduce_grads_``); the gradient
-means and the logs run over the data ranks. :meth:`weights` is the model
-with its whole (or EMA) parameters in place, for an eval, a sample or the
-image log; ``io/checkpoint.train_state`` gathers the full state.
+channels in the forward (``parallel/tp.py``); with ``fsdp`` each unit of
+the model (a block) gathers its parameters when it is called and
+reduce-scatters its mean gradients inside the backward
+(``parallel/fsdp.py``), so no rank holds every full parameter or gradient
+at once; after the backward the step averages the replicated leaves'
+gradients (``Sharding.finish_grads_``). The gradient means and the logs
+run over the data ranks. Every forward of a sharded model (an eval, a
+sample, the image log) goes through the units, so every rank of a data
+group runs it alike; :meth:`weights` swaps the EMA's parts in for one.
+``io/checkpoint.train_state`` gathers the full state.
 """
 
 from __future__ import annotations
@@ -117,23 +121,20 @@ class DiffusionTrainer:
         model.train()
         self.sharding = (shard_model_(model, self.layout, fsdp, min_size)
                          if fsdp or world_size > 1 else None)
-        gather = None
-        if self.sharding is not None and self.sharding.data_dims:
-            def gather(name, t, sharding=self.sharding):
-                return sharding.data_full("model." + name, t)
-        self.ema = EMA(model.model, gather=gather)
+        self.ema = EMA(model.model)
         self.step = 0
 
     def weights(self, ema: bool = False):
-        """The model with its data-gathered parameters in place (the EMA
-        denoiser with ``ema``) inside the block; every rank enters it
-        under sharded state."""
-        stack = contextlib.ExitStack()
-        if self.sharding is not None:
-            stack.enter_context(self.sharding.gathered())
-        if ema:
-            stack.enter_context(self.ema.scope())
-        return stack
+        """The model with the EMA denoiser's weights (with ``ema``) inside
+        the block; the FSDP units gather whatever is called in it."""
+        return self.ema.scope() if ema else contextlib.nullcontext()
+
+    def fsdp_counters(self) -> Dict[str, int]:
+        """The FSDP units' gathers, reduce-scatters and peak full bytes
+        since the last step began (empty without units)."""
+        if self.sharding is None or not self.sharding.units:
+            return {}
+        return self.sharding.counters.as_dict()
 
     def state_bytes(self) -> int:
         """Bytes of the train state this rank holds at rest: the model's
@@ -227,7 +228,7 @@ class DiffusionTrainer:
         image, tokens = self._batch(batch, cd)
         t, noise = self._draws(image.shape[0], generator)
         if self.sharding is not None:
-            self.sharding.gather_()
+            self.sharding.counters.reset()
         z = m.encode_first_stage(image).float()
         ctx = self._context(tokens)
 
@@ -241,7 +242,7 @@ class DiffusionTrainer:
             loss, logs = diffusion_loss(z, ctx, t, noise)
         loss.backward()
         if self.sharding is not None:
-            self.sharding.reduce_grads_(
+            self.sharding.finish_grads_(
                 [p for g in self.optimizer.param_groups for p in g["params"]])
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
