@@ -10,7 +10,7 @@ decoder):
 - t2i, ``configs/frido/t2i/frido_f16f8_coco.yaml``: 77 token ids -> BERT
   context -> PLMS over a 32^2 x 8 latent (CFG sequential);
 - layout2i f8f4, ``configs/frido/layout2i/frido_f8f4_coco_seg.yaml``: 96
-  bbox token ids -> BERT context -> DPM-Solver++(2M), 10 steps, over a
+  bbox token ids -> BERT context -> DPM-Solver++(2M), 5 steps, over a
   64^2 x 6 latent (D = 3 codebooks of 4096; the decoder attends over 4096
   tokens, the UNet over 1024 at 32^2; CFG sequential);
 - clip-t2i, ``configs/frido/t2i/frido_f16f8_coco_clip.yaml``, through the
@@ -111,8 +111,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 10. the sampling CLI: a Lightning ``.ckpt`` of the seeded clip-t2i model
    (a distinct EMA, a scalar scale factor) and vocab files written from
    the fallback BPE vocabulary, under the CLI's strict-vocab default;
-   ``-r that.ckpt --prompt ... -plms -G -gs 1.5 -bs 4`` at 20 steps in the
-   default configuration and 10 all-kernel, then ``--no_ema``; launches
+   ``-r that.ckpt --prompt ... -plms -G -gs 1.5 -bs 4`` at 10 steps in
+   both configurations, then ``--no_ema``; launches
    held to the architecture's, the PNGs read back, the images bit for bit
    those of a direct ``sample`` + ``decode`` under the EMA with the CLI's
    generator, ``--no_ema`` other images; checkpoint write and load
@@ -146,9 +146,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    size 1: the sharded restore, train state a rank);
 14. dataset sampling: the sampling CLI over the tree's test split from the
    training CLI's run (its EMA), PLMS 20, CFG 1.5, batches of 4, two
-   shards (``-ngpu 2 -igpu 0`` then ``1``), 8 samples each: each shard's
-   ``*-samples.npz`` holds the first samples of its split, launches held
-   to the architecture's, img/s;
+   shards (``-ngpu 2 -igpu 0`` then ``1``), 4 samples each: each
+   shard's ``*-samples.npz`` holds the first samples of its split,
+   launches held to the architecture's, img/s;
 15. eval: the FID InceptionV3 with seeded weights on the card against
    the CPU; ``python -m frido_tpu_torch.cli.eval_fid --size 256
    --inception_score`` between the tree's val JPEGs and the first shard's
@@ -179,12 +179,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    UNet call through ``DiffusionWrapper("adm")``, checked forward and
    gradient as in 6 (flash at [48, 1024, 32] bf16 and the fused prologue
    without SPADE among them); in each QKV order one fp32 UNet call card
-   against CPU, DDIM-20 at batch 4 and two bf16 train steps at batch 32
+   against CPU, DDIM-10 at batch 4 and two bf16 train steps at batch 32
    in both configurations, launches held to the architecture's; then
    t2i-ablations, the t2i config with stage experts, mscond and position
    embeddings: the kernel calls of an all-kernel pass and of a bf16 train
    step, checked alike, one fp32 UNet call a stage card against CPU,
-   PLMS-20 (CFG 1.5) with the decode at batch 4 and one bf16 train step
+   PLMS-10 (CFG 1.5) with the decode at batch 4 and one bf16 train step
    at batch 32 in both configurations; img/s, step seconds and peak
    memory above the model, beside the card;
 20. (run after 3) jax-import: the committed export of a toy t2i train
@@ -197,7 +197,23 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    loss, weights and EMA it records, PLMS-4 from the EMA; in the default
    configuration and all-kernel, launches counted from 0 in each; then the
    VG preprocessing tools (no h5py) on a raw dump; its seconds beside the
-   card.
+   card;
+21. the repository's measuring tools (``frido_tpu_torch/tools/``): after
+   4, ``flops_audit`` on the full-width t2i model (every unit on
+   ``meta``, the plain versions' products): the TFLOP a sampled image at
+   PLMS 200, CFG 1.5, and the main path's timed PLMS-20 batch-4 run's
+   products over its seconds and over the bf16 peak in each
+   configuration; after 6's image logging, ``profile_step`` at batch 4 in
+   both configurations (the all-kernel trace of every unit names all six
+   kernels; the default's without the decode; stage 1 held to the ``UNet
+   call`` line) and ``profile_train
+   --units step`` at batch 32, bf16; then ``quality_dpmpp_vs_plms`` at
+   full width, batch 2, PLMS 20 / DPM-Solver++ 10 / control PLMS 10 (no
+   NaN, DPM-Solver++'s latent PSNR within QUALITY_MARGIN_DB of the
+   control's); and after 14, ``acceptance`` in process (CKPT the training
+   CLI's run, the mini-val config pointed at the tree, PLMS 4, N 4, no
+   gate: ``nogate``), then its gate alone on that FID (``pass``, and
+   ``fail`` with exit 1 at the FID plus 2 TOL).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit; before that, one ``{"kernels": [...]}``
@@ -339,21 +355,22 @@ CTX_LEN = 77
 # ids (t2i conditions on id 0 alone, as bench.py does; layout2i on seeded
 # bbox token ids, which lie below the dataset's no_tokens of 1024), sampler
 # and eta, steps in the default and in the all-kernel configuration (t2i
-# at 20, layout2i at 10 in both, to keep the script short: bench.py's
-# BENCH_SAMPLER=dpmpp default is 25 steps, cut to make room for the data
-# and training-CLI phases), the architecture's counts. clip-t2i is driven
-# through the sampling CLI (``sampling_cli_phase``): 77 CLIP tokens give a context
-# of one token (``context_len``), PLMS 20 steps default and 10 all-kernel,
-# CFG batched (the CLI's), so one UNet call per evaluation.
+# at 20, layout2i at 5 in both, to keep the script short: bench.py's
+# BENCH_SAMPLER=dpmpp default is 25 steps, cut to make room for the data,
+# training-CLI and measuring-tool phases), the architecture's counts.
+# clip-t2i is driven through the sampling CLI (``sampling_cli_phase``): 77
+# CLIP tokens give a context of one token (``context_len``), PLMS 10 steps
+# in both configurations, CFG batched (the CLI's), so one UNet call per
+# evaluation.
 PATHS = {
     "t2i": dict(config=T2I, ctx_len=CTX_LEN, token_high=1, sampler="plms",
                 eta=0.0, steps=20, all_kernel_steps=20, arch=T2I_ARCH,
                 encode_arch=T2I_ENCODE_ARCH),
     "layout2i": dict(config=L2I, ctx_len=96, token_high=1024,
-                     sampler="dpmpp", eta=0.0, steps=10, all_kernel_steps=10,
+                     sampler="dpmpp", eta=0.0, steps=5, all_kernel_steps=5,
                      arch=L2I_ARCH, encode_arch=L2I_ENCODE_ARCH),
     "clip-t2i": dict(config=CLIP_T2I, ctx_len=CTX_LEN, context_len=1,
-                     sampler="plms", eta=0.0, steps=20, all_kernel_steps=10,
+                     sampler="plms", eta=0.0, steps=10, all_kernel_steps=10,
                      arch=CLIP_ARCH, cfg_batched=True),
 }
 PROFILE_STEPS = 2   # a short chain under torch.profiler, for the breakdown
@@ -506,7 +523,7 @@ LPIPS_ATOL = 1e-3
 # same uint8 pixels: 1e-5 (fp32 matmuls in another order, of values up to
 # 255 / 127.5). The tree: 64 records a split. The training CLI: 3 steps
 # default (then one resumed), 2 all-kernel; its test pass DDIM 10 steps on
-# one test batch. Dataset sampling: PLMS 20, batches of 4, 8 samples of
+# one test batch. Dataset sampling: PLMS 20, batches of 4, 4 samples of
 # each of two shards. A resumed train loader: its batches equal the
 # uninterrupted loader's exactly (the same decodes and pixel work on the
 # same files with the same plans).
@@ -533,7 +550,10 @@ DATA_EPOCHS = 3
 CLI_STEPS = {"default": 3, "all-kernel": 2}
 CLI_TEST_STEPS = 10
 CLI_TIMEOUT = 420
-DATASET_BATCH, DATASET_STEPS, DATASET_SAMPLES = 4, 20, 8
+DATASET_BATCH, DATASET_STEPS, DATASET_SAMPLES = 4, 20, 4
+# the acceptance chain (tools/acceptance.py) over the tree from the training
+# CLI's run: its STEPS and N, cut from the runbook's 200 and the whole split
+ACCEPT_STEPS, ACCEPT_N = 4, 4
 EVAL_IMAGES = 4
 EVAL_FEATURE_RTOL = 1e-4
 RECON_ATOL = 1e-6
@@ -559,6 +579,19 @@ FSDP_STEPS = 2
 #     cs.fsdp_phase(card, cs.build_main_model(cs.T2I))"
 # off here, for the script's time limit (a trace's parse is slow)
 FSDP_PROFILE = False
+# The repository's measuring tools on the card (frido_tpu_torch/tools/).
+# The DPM-Solver++-vs-PLMS check at full width, batch 2, its step counts
+# (PLMS, DPM-Solver++, the PLMS control) cut from the script's 200, 25,
+# 100 at batch 16; it fails on NaN or on a DPM-Solver++ latent PSNR below
+# the control's minus QUALITY_MARGIN_DB (a check that the samplers run the
+# same ODE, not a quality claim). The profilers at the main path's batch,
+# PROFILE_ITERS calls a unit: profile_step's stage-1 device ms is at most
+# HOST_SPREAD times the UNet call line's event ms (its device time cannot
+# exceed the call's wall time; the host's speed moves between the two
+# measurements), its host ms under the profiler between 1 / HOST_SPREAD and
+# PROFILER_SLOWDOWN x HOST_SPREAD times it.
+QUALITY_BATCH, QUALITY_STEPS, QUALITY_MARGIN_DB = 2, (20, 10, 10), 10.0
+PROFILE_ITERS, HOST_SPREAD, PROFILER_SLOWDOWN = 2, 2.0, 2.0
 DRYRUN_TIMEOUT = 900
 VG_IMAGES, OI_IMAGES = 24, 8
 
@@ -568,11 +601,11 @@ VG_IMAGES, OI_IMAGES = 24, 8
 # ResBlocks a level, attention at 32^2, 16^2 and 8^2 with heads of 32:
 # 1024 tokens x 12 heads, 256 x 18, 64 x 30), GroupNorm ResBlocks with
 # resblock up/down and scale-shift norm, the plain AttentionBlock in both
-# QKV orders; DDIM-20 (eta 0) at batch 4 in both configurations, two bf16
+# QKV orders; DDIM-10 (eta 0) at batch 4 in both configurations, two bf16
 # training steps at the t2i batch of 32, one UNet call with 1000 class ids
 # (use_embed) through DiffusionWrapper("adm") at batch 4. t2i-ablations:
 # the t2i config with stage experts, mscond and position embeddings;
-# PLMS-20, CFG 1.5, batch 4 with the decode in both configurations, one
+# PLMS-10, CFG 1.5, batch 4 with the decode in both configurations, one
 # bf16 training step at batch 32. One fp32 UNet call of each model (each
 # order, each stage) card against CPU within FULL_UNET_RTOL of the CPU
 # output's largest magnitude: fp32 sums of up to 9 x 1920 terms through
@@ -585,11 +618,11 @@ PIXEL_UNET = dict(
     image_size=64, in_channels=3, out_channels=3, use_split_head=False,
     use_SPADE_norm=False, use_spatial_transformer=False, num_stage=1,
     resblock_updown=True, use_scale_shift_norm=True)
-PIXEL_STEPS = 20
+PIXEL_STEPS = 10
 PIXEL_TRAIN_STEPS = 2
 PIXEL_CLASSES = 1000
 ABLATIONS = dict(use_stage_expert=True, use_mscond=True, use_pos_embed=True)
-ABLATION_STEPS = 20
+ABLATION_STEPS = 10
 FULL_UNET_RTOL = 1e-3
 # sites these paths must reach: flash over the pixel
 # UNet's 1024 tokens (12 heads of 32 at batch 4) and the fused prologue
@@ -1285,10 +1318,11 @@ def unet_conv_sum_phase(model):
 
 # ---------------------------------------------------------------------------
 @contextlib.contextmanager
-def all_kernels():
-    """The JAX package's all-kernel configuration, for the block."""
-    saved = {k: os.environ.get(k) for k in ALL_KERNELS}
-    os.environ.update(ALL_KERNELS)
+def environ(values):
+    """The environment variables ``values`` for the block, put back
+    after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
     try:
         yield
     finally:
@@ -1297,6 +1331,11 @@ def all_kernels():
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def all_kernels():
+    """The JAX package's all-kernel configuration, for the block."""
+    return environ(ALL_KERNELS)
 
 
 KERNELS = {"flash_attention": flash_attention, "vq_argmin": vq_argmin,
@@ -1749,6 +1788,11 @@ def count(module, cls):
     return sum(isinstance(m, cls) for m in module.modules())
 
 
+# the second (timed) run of each main path: (seconds, steps), and the
+# profiled stage-1 UNet call's event ms, by "task, label"
+MAIN_SECONDS, UNET_CALL_MS = {}, {}
+
+
 def main_path_phase(card, model, task, label):
     """One path in the current configuration: launches held to the
     architecture's, the outputs checked, a second run timed, a profile."""
@@ -1784,6 +1828,7 @@ def main_path_phase(card, model, task, label):
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     _, _, warm = drive_main_path(model, path, seed=1, steps=steps)
+    MAIN_SECONDS[name] = (sum(warm.values()), steps)
     for run, s in (("first run", secs), ("second run", warm)):
         total = sum(s.values())
         log(f"main path ({name}) {run} on {card}: batch {BATCH}, "
@@ -2553,8 +2598,8 @@ def direct_images(model, steps):
 def sampling_cli_phase(card, model):
     """The clip-t2i path through the sampling CLI, in process: a Lightning
     ``.ckpt`` written from ``model``'s seeded weights with a distinct EMA;
-    ``-r that.ckpt --prompt ... -plms -G -gs 1.5 -bs 4`` at 20 steps in
-    the default configuration and at 10 all-kernel, under the CLI's
+    ``-r that.ckpt --prompt ... -plms -G -gs 1.5 -bs 4`` at 10 steps in
+    both configurations, under the CLI's
     strict-vocab default with the fallback BPE files as the vocabulary;
     then ``--no_ema`` all-kernel. Each run: launches held to the
     architecture's (counts set to 0 just before ``main``, read just after),
@@ -3055,6 +3100,8 @@ def data_cli_phases(card, arch):
         mark("train CLI default")
         dataset_sampling_phase(card, dots, run_dir, work / "samples")
         mark("dataset sampling")
+        acceptance_phase(card, root, run_dir, work)
+        mark("acceptance chain")
         shutil.rmtree(run_dir)
         torch.cuda.empty_cache()
         inception_phase(card)
@@ -4149,7 +4196,7 @@ def ddpm_pixel_phase(card):
     DDIM step, one bf16 train step at batch 32 and one adm UNet call,
     checked (forward, and gradient where it takes one) as in
     ``check_sites``; in each QKV order the fp32 UNet card against CPU,
-    DDIM-20 at batch 4 and the bf16 training steps in both configurations
+    DDIM-10 at batch 4 and the bf16 training steps in both configurations
     (img/s, launches held to the architecture's, peak memory); the adm
     call. Returns the sites' "other sites" entries."""
     t0 = time.perf_counter()
@@ -4238,7 +4285,7 @@ def t2i_ablations_phase(card):
     pass (conditioning, both stages' UNet calls on their expert trunks with
     the mscond branch and position embeddings, decode) and of one bf16
     train step at batch 32, checked as in ``check_sites``; one fp32 UNet
-    call a stage card against CPU; PLMS-20 (CFG 1.5) with the decode at
+    call a stage card against CPU; PLMS-10 (CFG 1.5) with the decode at
     batch 4 in both configurations; one bf16 train step at batch 32.
     Returns the sites' "other sites" entries."""
     t0 = time.perf_counter()
@@ -4309,6 +4356,172 @@ def t2i_ablations_phase(card):
     del model, unet
     torch.cuda.empty_cache()
     return sites
+
+
+def flops_phase(card):
+    """``tools/flops_audit.py`` on the full-width t2i model (every unit on
+    ``meta``, the plain versions' products): the TFLOP a sampled image at
+    PLMS 200, CFG 1.5 (the JAX script's report), then the FLOPs the main
+    path's timed PLMS-20 batch-4 run did in each configuration over its
+    seconds and over the card's bf16 peak (a share, no limit)."""
+    from frido_tpu_torch.tools import flagship, flops_audit
+
+    t0 = time.perf_counter()
+    meta = flagship.build(False, "meta")
+    counted = flops_audit.unit_flops(meta, 1)
+    if set(counted["devices"].values()) != {"meta"}:
+        raise AssertionError(f"FLOP audit devices {counted['devices']}")
+    report = flops_audit.compose(counted["flops"], meta.num_stage, 200)
+    log(f"FLOP audit (t2i f16f8, PLMS 200, CFG {GUIDANCE} sequential, "
+        f"products on meta, {time.perf_counter() - t0:.1f} s): "
+        f"{json.dumps(report)}")
+    for label in ("default", "all-kernel"):
+        secs, steps = MAIN_SECONDS[f"t2i, {label}"]
+        path = flops_audit.compose(counted["flops"], meta.num_stage, steps)
+        calls = unet_calls(meta, "plms", steps)
+        if path["model_calls_per_image"] != calls:
+            raise AssertionError(f"the audit composes "
+                                 f"{path['model_calls_per_image']} UNet "
+                                 f"calls, the sampler makes {calls}")
+        tflop = path["total_tflop_per_image"] * BATCH
+        log(f"main path share of peak (t2i, {label}) on {card}: "
+            f"{tflop:.4f} TFLOP (products) for batch {BATCH}, PLMS {steps}, "
+            f"CFG {GUIDANCE} sequential, in the timed run's {secs:.3f} s: "
+            f"{tflop / secs:.3f} TFLOP/s, "
+            f"{tflop * 1e12 / secs / PEAK_BF16_FLOPS:.5f} of the bf16 peak "
+            f"({PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s)")
+
+
+def quality_phase(card):
+    """``tools/quality_dpmpp_vs_plms.py`` at full width with cut step
+    counts: its JSON line, no NaN, and DPM-Solver++'s latent PSNR against
+    PLMS at least the control's minus QUALITY_MARGIN_DB."""
+    from frido_tpu_torch.tools import quality_dpmpp_vs_plms as quality
+
+    p, d, c = QUALITY_STEPS
+    defaults = "/".join(map(str, quality.STEPS["full"]))
+    log(f"quality check on {card}: full-width t2i (seeded, livened), batch "
+        f"{QUALITY_BATCH}, PLMS {p} / DPM-Solver++ {d} / control PLMS {c} "
+        f"(the script's defaults: batch 16, {defaults})")
+    out, secs = timed(lambda: quality.main(
+        ["--batch", str(QUALITY_BATCH), "--steps", f"{p},{d},{c}"]))
+    torch.cuda.empty_cache()
+    nan = [k for k, v in out.items() if isinstance(v, float) and v != v]
+    if nan:
+        raise AssertionError(f"quality check: NaN in {nan}")
+    gap = out["control_plms100_latent_psnr_db"] - out["latent_psnr_db"]
+    if gap > QUALITY_MARGIN_DB:
+        raise AssertionError(f"quality check: DPM-Solver++ latent PSNR "
+                             f"{out['latent_psnr_db']} dB is {gap:.2f} dB "
+                             f"below the control's (margin "
+                             f"{QUALITY_MARGIN_DB})")
+    log(f"quality check: {secs:.1f} s; DPM-Solver++ latent PSNR "
+        f"{out['latent_psnr_db']} dB, the control's "
+        f"{out['control_plms100_latent_psnr_db']} dB (gap {gap:.2f} dB, "
+        f"margin {QUALITY_MARGIN_DB})")
+
+
+def profile_tools_phase(card, model):
+    """``tools/profile_step.py`` on the t2i model at the main path's batch
+    in both configurations (every unit all-kernel, whose trace must name
+    all six kernels; the default's stage and cond units, which run none;
+    stage 1's per-call ms held to the ``UNet call`` line), then
+    ``tools/profile_train.py --units step`` at the training phase's batch,
+    bf16 (the model trained in place one step, then back in eval mode)."""
+    from frido_tpu_torch.tools import profile_step, profile_train
+
+    # default: no decode unit (cuDNN's FFT launches ~34 000 kernels a
+    # decode, slow to trace; the main path's profile shows it)
+    units = {"default": ["stage0", "stage1", "cond"],
+             "all-kernel": list(profile_step.UNITS)}
+    want = {"default": set(),
+            "all-kernel": set(profile_step.PORT_KERNEL_NAMES)}
+    for label in ("default", "all-kernel"):
+        log(f"profile_step ({label}) on {card}:")
+        argv = ["--batch", str(BATCH), "--iters", str(PROFILE_ITERS),
+                "--top", "8", "--units", ",".join(units[label])]
+        with (all_kernels() if label == "all-kernel"
+              else contextlib.nullcontext()):
+            res, secs = timed(lambda: profile_step.main(argv, model=model))
+        named = {c for unit in res.values()
+                 for c, ms in unit["categories"].items()
+                 if c in profile_step.PORT_KERNEL_NAMES and ms > 0}
+        if named != want[label]:
+            raise AssertionError(f"profile_step ({label}) named {named}, "
+                                 f"not {want[label]}")
+        stage1, call_ms = res["stage1"], UNET_CALL_MS[f"t2i, {label}"]
+        dev, wall = stage1["ms"] / call_ms, stage1["wall_ms"] / call_ms
+        if not (dev <= HOST_SPREAD and 1 / HOST_SPREAD <= wall
+                <= PROFILER_SLOWDOWN * HOST_SPREAD):
+            raise AssertionError(
+                f"profile_step ({label}) stage 1: device {stage1['ms']:.3f}"
+                f" ms, host {stage1['wall_ms']:.3f} ms a call against the "
+                f"UNet call's {call_ms:.3f} ms")
+        log(f"profile_step ({label}): {secs:.1f} s; kernels named "
+            f"{sorted(named)}; stage 1 device {stage1['ms']:.3f} ms ({dev:.3f} of the UNet "
+            f"call line's {call_ms:.3f} ms), host {stage1['wall_ms']:.3f} "
+            f"ms under the profiler ({wall:.3f})")
+    log(f"profile_train (step, batch {TRAIN_BATCH}, bf16) on {card}:")
+    res, secs = timed(lambda: profile_train.main(
+        ["--batch", str(TRAIN_BATCH), "--iters", "1", "--units", "step",
+         "--top", "8"], model=model))
+    model.eval()
+    torch.cuda.empty_cache()
+    if not res["step"]["ms"] > 0:
+        raise AssertionError(f"profile_train: {res['step']['ms']} ms")
+    log(f"profile_train: {secs:.1f} s")
+
+
+def acceptance_phase(card, tree, run_dir, work):
+    """``tools/acceptance.py`` in process: CKPT the training CLI's run,
+    the mini-val config pointed at the tree (DATA_PATH, EXTRA_OVERRIDES:
+    the caption files, an id list of the tree's val images, batches of
+    4), STEPS ACCEPT_STEPS, N ACCEPT_N, the seeded Inception weights,
+    the fallback vocabulary as the vocab file (the run was trained on its
+    ids), no gate: exit 0, ``nogate``; then the gate alone on that FID,
+    expecting it (``pass``, exit 0) and expecting it plus 2 TOL
+    (``fail``, exit 1)."""
+    from frido_tpu_torch.eval import inception
+    from frido_tpu_torch.text.wordpiece import fallback_vocab
+    from frido_tpu_torch.tools import acceptance
+
+    weights, vocab = work / "inception.npz", work / "vocab.txt"
+    np.savez(weights, **inception.random_state_dict(0))
+    v = fallback_vocab()
+    vocab.write_text("\n".join(sorted(v, key=v.get)) + "\n",
+                     encoding="utf-8")
+    ids = work / "ids_val.txt"
+    ids.write_text("".join(f"{i:012d}\n" for i in range(1, TREE_IMAGES + 1)))
+    extra = [d for d in tree_dotlist(tree) if "caption_ann_path" in d] + [
+        f"data.params.test.params.img_id_file={ids}",
+        f"data.params.batch_size={ACCEPT_N}"]
+    out = work / "acceptance"
+    env = {"CKPT": str(run_dir), "FRIDO_TPU_INCEPTION": str(weights),
+           "FRIDO_TPU_BERT_VOCAB": str(vocab), "STEPS": str(ACCEPT_STEPS),
+           "N": str(ACCEPT_N), "OUT": str(out), "EXPECTED_FID": "",
+           "DATA_PATH": str(tree), "EXTRA_OVERRIDES": " ".join(extra)}
+    with environ(env):
+        rc, secs = timed(lambda: acceptance.main([]))
+    result = json.loads((out / "acceptance" / "RESULT.json").read_text())
+    n = len(os.listdir(out / "acceptance" / "sample"))
+    if rc != 0 or result["status"] != "nogate" or n != ACCEPT_N:
+        raise AssertionError(f"acceptance chain: exit {rc}, {result}, "
+                             f"{n} samples")
+    fid, tol = result["fid"], float(acceptance.DEFAULTS["TOL"])
+    log(f"acceptance chain on {card}: the mini-val config over the tree, "
+        f"CKPT the training CLI's run, PLMS {ACCEPT_STEPS}, CFG 1.5, "
+        f"N {ACCEPT_N}, seeded Inception: exit {rc}, {result['status']}, "
+        f"FID {fid:.6g}, {secs:.1f} s")
+    for expected, status, code in ((fid, "pass", 0),
+                                   (fid + 2 * tol, "fail", 1)):
+        with environ(dict(env, EXPECTED_FID=repr(expected))):
+            rc = acceptance.gate(acceptance.knobs(), fid)
+        got = json.loads((out / "acceptance" / "RESULT.json").read_text())
+        if rc != code or got["status"] != status:
+            raise AssertionError(f"acceptance gate at {expected}: exit {rc}"
+                                 f", {got}")
+        log(f"acceptance gate alone, EXPECTED_FID {expected!r}, TOL "
+            f"{tol:g}: exit {rc}, {got['status']}")
 
 
 def build_main_model(config):
@@ -4392,6 +4605,7 @@ def profile_phase(model, path, name):
                           reps=5)
         cast_ms = cuda_ms(lambda: [p.to(torch.bfloat16)
                                    for p in unet.parameters()], reps=5)
+    UNET_CALL_MS[name] = call_ms
     log(f"UNet call ({name}; batch {BATCH}, bf16, stage 1): "
         f"{call_ms:.3f} ms; "
         f"casting its {sum(1 for _ in unet.parameters())} weight tensors "
@@ -4435,6 +4649,8 @@ def main():
     with all_kernels():
         opt_in = main_path_phase(card, model, "t2i", "all-kernel")
     mark("t2i paths")
+    flops_phase(card)
+    mark("FLOP audit")
     other = encode_sites_phase(model, "t2i encode")
     mark("t2i encode sites")
     first_stage_phase(card, model, "t2i", "default")
@@ -4459,8 +4675,12 @@ def main():
         image_logging_phase(card, model, work)
     toy_log_phase(card)
     mark("image logging")
+    profile_tools_phase(card, model)
+    mark("profile tools")
     del model
     torch.cuda.empty_cache()
+    quality_phase(card)
+    mark("quality check")
     model = build_msvqgan()
     forward_with_aux_phase(card, model, "default")
     with all_kernels():

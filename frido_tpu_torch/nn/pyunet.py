@@ -326,6 +326,7 @@ class PyUNetModel(nn.Module):
         if use_stage_expert and not split:
             raise ValueError("use_stage_expert needs split_embed_dim_list")
         self.model_channels = mc
+        self.context_dim = context_dim
         self.dropout = dropout
         self.num_classes = num_classes
         self.num_stage = num_stage

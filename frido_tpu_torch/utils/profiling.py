@@ -2,7 +2,8 @@
 
 - :func:`trace` records the block with ``torch.profiler`` and writes a
   Chrome trace into the directory given (the JAX one wraps
-  ``jax.profiler``);
+  ``jax.profiler``); ``tools/profile_step.py`` and ``profile_train.py``
+  read its events;
 - :func:`annotate` names a region of that trace (``torch.profiler.
   record_function``), and an NVTX range on CUDA;
 - :func:`device_sync` is the timing barrier: it waits for the device of
@@ -21,12 +22,14 @@ from typing import Any, Optional
 
 
 @contextlib.contextmanager
-def trace(logdir: Optional[str]):
+def trace(logdir: Optional[str], record_shapes: bool = False):
     """``torch.profiler`` over the block (host, and the card when CUDA is
-    available), exported to ``<logdir>/trace.json``; nothing when
+    available), exported to ``<logdir>/trace.json``; the block gets the
+    profiler (its events for a caller that reads them, with the operators'
+    input shapes under ``record_shapes``). Nothing, and ``None``, when
     ``logdir`` is empty."""
     if not logdir:
-        yield
+        yield None
         return
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -35,8 +38,8 @@ def trace(logdir: Optional[str]):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
+    with profile(activities=activities, record_shapes=record_shapes) as prof:
+        yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 

@@ -2,9 +2,10 @@
 coverage of the t2i configuration.
 
 - No file of ``frido_tpu_torch/`` (the training, loss, text, CLI,
-  checkpoint and data modules included) and not ``chip_smoke.py`` imports
-  jax, flax, optax or the JAX package, nor ``regex`` or PIL, which the
-  card's machine does not have. Two exceptions for PIL, each inside a
+  checkpoint and data modules and the measuring tools included) and not
+  ``chip_smoke.py`` imports jax, flax, optax, the JAX package or
+  ``__graft_entry__``, nor ``regex`` or PIL, which the card's machine
+  does not have. Two exceptions for PIL, each inside a
   function and never at module level: the CPU branch of the JPEG decode
   (``data/image_io.py``, the plain version the card's decoder is held to)
   and the fixture writer ``tools/make_mini_coco.py``, which runs where PIL
@@ -46,6 +47,7 @@ torch.set_num_threads(2)
 REPO = pathlib.Path(__file__).resolve().parents[1]
 T2I = REPO / "configs" / "frido" / "t2i" / "frido_f16f8_coco.yaml"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "h5py", "frido_tpu",
+             "__graft_entry__",
              "regex", "PIL"}
 # files that may import PIL inside a function
 PIL_IN_FUNCTIONS = {"data/image_io.py", "tools/make_mini_coco.py",
@@ -107,7 +109,10 @@ def test_port_imports_no_jax():
             "io/jax_export.py", "tools/import_jax_run.py",
             "tools/jax_import_check.py", "tools/preprocess_vg_sg2im.py",
             "tools/preprocess_vg_to_sg.py",
-            "tools/convert_vg_to_coco_style.py"} <= names
+            "tools/convert_vg_to_coco_style.py", "tools/acceptance.py",
+            "tools/flops_audit.py", "tools/quality_dpmpp_vs_plms.py",
+            "tools/profile_step.py", "tools/profile_train.py",
+            "tools/flagship.py"} <= names
     pil_ok = {REPO / "frido_tpu_torch" / f for f in PIL_IN_FUNCTIONS}
     bad = {str(f.relative_to(REPO)): sorted(
                set(_imported_roots(f)) & (FORBIDDEN - {"PIL"} if f in pil_ok
