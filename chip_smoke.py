@@ -70,8 +70,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 6. training: every distinct kernel call of one all-kernel t2i train step and of one GAN
    step, forward as in 5 and, where it takes a gradient, its gradient
    against the plain version's autograd; the t2i model's diffusion
-   training (2 warm-up and 3 timed steps) in both configurations and one
-   fp32 step, and the MS-VQGAN's GAN training (2 + 2) in both, each with
+   training (1 warm-up and 2 timed steps) in both configurations and one
+   fp32 step, and the MS-VQGAN's GAN training (1 + 1) in both, each with
    its launches per step held to the architecture's (the backward
    recomputes through the plain versions and launches nothing), img/s,
    step seconds, peak memory above the model and a profiled step (the
@@ -111,7 +111,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 10. the sampling CLI: a Lightning ``.ckpt`` of the seeded clip-t2i model
    (a distinct EMA, a scalar scale factor) and vocab files written from
    the fallback BPE vocabulary, under the CLI's strict-vocab default;
-   ``-r that.ckpt --prompt ... -plms -G -gs 1.5 -bs 4`` at 10 steps in
+   ``-r that.ckpt --prompt ... -plms -G -gs 1.5 -bs 4`` at 5 steps in
    both configurations, then ``--no_ema``; launches
    held to the architecture's, the PNGs read back, the images bit for bit
    those of a direct ``sample`` + ``decode`` under the EMA with the CLI's
@@ -135,19 +135,18 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 13. the training CLI: ``torchrun --standalone --nproc_per_node 1 -m
    frido_tpu_torch.cli.main -b configs/frido/t2i/frido_f16f8_coco.yaml -t
    --bf16_train`` (NCCL at world size 1), the config's data section
-   pointed at the tree, 3 steps default and 2 all-kernel, each with its
-   test pass (DDIM 10, one test batch of 32, PNGs); launches per step held
-   to the architecture's (the CLI prints its counts, the image log's
+   pointed at the tree, 3 steps default, then 1 more all-kernel resumed
+   from its ``last`` with ``--fsdp`` (the sharded restore), each run with
+   its test pass (DDIM 5, one test batch of 32, PNGs); launches per step
+   held to the architecture's (the CLI prints its counts, the image log's
    encode and decode at step 3 beside); set-up seconds, step seconds,
    training img/s, the loader wait share, peak memory above the model,
    train state a rank, the image log's seconds and its PNGs (inputs and
-   captions equal to the CLI loader's third batch's grids); the default
-   resumed from ``last`` for one more step with ``--fsdp`` (NCCL, world
-   size 1: the sharded restore, train state a rank);
+   captions equal to the CLI loader's third batch's grids);
 14. dataset sampling: the sampling CLI over the tree's test split from the
-   training CLI's run (its EMA), PLMS 20, CFG 1.5, batches of 4, two
-   shards (``-ngpu 2 -igpu 0`` then ``1``), 4 samples each: each
-   shard's ``*-samples.npz`` holds the first samples of its split,
+   training CLI's run (its EMA), PLMS 10, CFG 1.5, batches of 4, shard
+   0 of two (``-ngpu 2 -igpu 0``; the runbook phase, 22, runs both), 4
+   samples: its ``*-samples.npz`` holds the first samples of its split,
    launches held to the architecture's, img/s;
 15. eval: the FID InceptionV3 with seeded weights on the card against
    the CPU; ``python -m frido_tpu_torch.cli.eval_fid --size 256
@@ -179,12 +178,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    UNet call through ``DiffusionWrapper("adm")``, checked forward and
    gradient as in 6 (flash at [48, 1024, 32] bf16 and the fused prologue
    without SPADE among them); in each QKV order one fp32 UNet call card
-   against CPU, DDIM-10 at batch 4 and two bf16 train steps at batch 32
+   against CPU, DDIM-5 at batch 4 and two bf16 train steps at batch 32
    in both configurations, launches held to the architecture's; then
    t2i-ablations, the t2i config with stage experts, mscond and position
    embeddings: the kernel calls of an all-kernel pass and of a bf16 train
    step, checked alike, one fp32 UNet call a stage card against CPU,
-   PLMS-10 (CFG 1.5) with the decode at batch 4 and one bf16 train step
+   PLMS-5 (CFG 1.5) with the decode at batch 4 and one bf16 train step
    at batch 32 in both configurations; img/s, step seconds and peak
    memory above the model, beside the card;
 20. (run after 3) jax-import: the committed export of a toy t2i train
@@ -213,7 +212,22 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    control's); and after 14, ``acceptance`` in process (CKPT the training
    CLI's run, the mini-val config pointed at the tree, PLMS 4, N 4, no
    gate: ``nogate``), then its gate alone on that FID (``pass``, and
-   ``fail`` with exit 1 at the FID plus 2 TOL).
+   ``fail`` with exit 1 at the FID plus 2 TOL);
+22. the quickstart and the runbooks, after 13's all-kernel run:
+   ``frido_tpu_torch/demo.ipynb``'s code cells in order in one namespace
+   at full width from random weights (``CKPT`` empty), the steps set to
+   NOTEBOOK_STEPS after the first cell: the grid's shape, finite samples,
+   flash and VQ launches; then the port's ``eval_t2i_multiGPU.sh 2``
+   (``frido_tpu_torch/runbooks/``) as a subprocess (before 15), in a
+   scratch working directory under ``build/`` holding the t2i config at full
+   width over the tree, its test split narrowed to RUNBOOK_RECORDS
+   records by an id list, ``CKPT`` the training CLI's run: both shards on
+   the card at the runbook's own PLMS 200, CFG 1.5, each writing one
+   sample and its input under the split's file names (no overlap), each
+   shard's summary naming ``cuda`` and launches equal to the
+   architecture's for one image; the same runbook with ``CKPT`` missing,
+   run beside it in an empty directory, exits non-zero before any
+   sampling.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit; before that, one ``{"kernels": [...]}``
@@ -359,7 +373,7 @@ CTX_LEN = 77
 # BENCH_SAMPLER=dpmpp default is 25 steps, cut to make room for the data,
 # training-CLI and measuring-tool phases), the architecture's counts.
 # clip-t2i is driven through the sampling CLI (``sampling_cli_phase``): 77
-# CLIP tokens give a context of one token (``context_len``), PLMS 10 steps
+# CLIP tokens give a context of one token (``context_len``), PLMS 5 steps
 # in both configurations, CFG batched (the CLI's), so one UNet call per
 # evaluation.
 PATHS = {
@@ -370,7 +384,7 @@ PATHS = {
                      sampler="dpmpp", eta=0.0, steps=5, all_kernel_steps=5,
                      arch=L2I_ARCH, encode_arch=L2I_ENCODE_ARCH),
     "clip-t2i": dict(config=CLIP_T2I, ctx_len=CTX_LEN, context_len=1,
-                     sampler="plms", eta=0.0, steps=10, all_kernel_steps=10,
+                     sampler="plms", eta=0.0, steps=5, all_kernel_steps=5,
                      arch=CLIP_ARCH, cfg_batched=True),
 }
 PROFILE_STEPS = 2   # a short chain under torch.profiler, for the breakdown
@@ -463,7 +477,7 @@ GAN_LR = optim.scaled_learning_rate(
     _MSVQ_CFG["model"]["base_learning_rate"], GAN_BATCH, 1)
 GAN_DISC_START = _MSVQ_CFG["model"]["params"]["lossconfig"]["params"][
     "disc_start"]
-TRAIN_STEPS, GAN_STEPS = (2, 3), (2, 2)     # (warm-up, timed) steps
+TRAIN_STEPS, GAN_STEPS = (1, 2), (1, 1)     # (warm-up, timed) steps
 TOY_LR = 1e-3
 TOY_GAN_LOSS = dict(disc_start=1, disc_num_layers=2, disc_weight=0.8,
                     perceptual_weight=0.0)
@@ -522,9 +536,9 @@ LPIPS_ATOL = 1e-3
 # 4:4:4 planes to the plane bound. The image pipeline on the card against the CPU on the
 # same uint8 pixels: 1e-5 (fp32 matmuls in another order, of values up to
 # 255 / 127.5). The tree: 64 records a split. The training CLI: 3 steps
-# default (then one resumed), 2 all-kernel; its test pass DDIM 10 steps on
-# one test batch. Dataset sampling: PLMS 20, batches of 4, 4 samples of
-# each of two shards. A resumed train loader: its batches equal the
+# default (then one resumed), 2 all-kernel; its test pass DDIM 5 steps on
+# one test batch. Dataset sampling: PLMS 10, batches of 4, 4 samples of
+# shard 0 of two. A resumed train loader: its batches equal the
 # uninterrupted loader's exactly (the same decodes and pixel work on the
 # same files with the same plans).
 #
@@ -547,13 +561,23 @@ JPEG_REPS = 5
 PIPELINE_ATOL = 1e-5
 TREE_IMAGES = 64
 DATA_EPOCHS = 3
-CLI_STEPS = {"default": 3, "all-kernel": 2}
-CLI_TEST_STEPS = 10
+# the default run, then the all-kernel one resumed from it with --fsdp
+CLI_STEPS = {"default": 3, "all-kernel": 1}
+CLI_RUN = "t2i_cli"
+CLI_TEST_STEPS = 5
 CLI_TIMEOUT = 420
-DATASET_BATCH, DATASET_STEPS, DATASET_SAMPLES = 4, 20, 4
+DATASET_BATCH, DATASET_STEPS, DATASET_SAMPLES = 4, 10, 4
+# shard 0 of two in process (the FID phase reads its samples); both shards
+# run as processes in the runbook phase
+DATASET_SHARDS = (0,)
 # the acceptance chain (tools/acceptance.py) over the tree from the training
 # CLI's run: its STEPS and N, cut from the runbook's 200 and the whole split
 ACCEPT_STEPS, ACCEPT_N = 4, 4
+# the port's multishard runbook at its own PLMS 200 (CFG batched) over a
+# test split of one record a shard, and the notebook at NOTEBOOK_STEPS
+RUNBOOK_SHARDS, RUNBOOK_RECORDS, RUNBOOK_TIMEOUT = 2, 2, 420
+RUNBOOK_STEPS = 200
+NOTEBOOK_STEPS = 4
 EVAL_IMAGES = 4
 EVAL_FEATURE_RTOL = 1e-4
 RECON_ATOL = 1e-6
@@ -564,7 +588,7 @@ MSVQ_SEED = 23
 CLI_TRAIN_SEED = 23         # the training CLI's default --seed
 IMG_LOG_EVERY = 3           # the training CLI's image log fires at step 3
 LOG_N = 8                   # ImageLogger's max_images
-LOG_DDIM_STEPS = 20
+LOG_DDIM_STEPS = 10
 LOG_CAPTIONS = ("a red double-decker bus on a wet street at night",
                 "AVATAR To WAVE fi ff", "café crème — naïve 日本",
                 "two dogs", "a plate of food with a fork and a knife "
@@ -601,11 +625,11 @@ VG_IMAGES, OI_IMAGES = 24, 8
 # ResBlocks a level, attention at 32^2, 16^2 and 8^2 with heads of 32:
 # 1024 tokens x 12 heads, 256 x 18, 64 x 30), GroupNorm ResBlocks with
 # resblock up/down and scale-shift norm, the plain AttentionBlock in both
-# QKV orders; DDIM-10 (eta 0) at batch 4 in both configurations, two bf16
+# QKV orders; DDIM-5 (eta 0) at batch 4 in both configurations, two bf16
 # training steps at the t2i batch of 32, one UNet call with 1000 class ids
 # (use_embed) through DiffusionWrapper("adm") at batch 4. t2i-ablations:
 # the t2i config with stage experts, mscond and position embeddings;
-# PLMS-10, CFG 1.5, batch 4 with the decode in both configurations, one
+# PLMS-5, CFG 1.5, batch 4 with the decode in both configurations, one
 # bf16 training step at batch 32. One fp32 UNet call of each model (each
 # order, each stage) card against CPU within FULL_UNET_RTOL of the CPU
 # output's largest magnitude: fp32 sums of up to 9 x 1920 terms through
@@ -618,11 +642,11 @@ PIXEL_UNET = dict(
     image_size=64, in_channels=3, out_channels=3, use_split_head=False,
     use_SPADE_norm=False, use_spatial_transformer=False, num_stage=1,
     resblock_updown=True, use_scale_shift_norm=True)
-PIXEL_STEPS = 10
+PIXEL_STEPS = 5
 PIXEL_TRAIN_STEPS = 2
 PIXEL_CLASSES = 1000
 ABLATIONS = dict(use_stage_expert=True, use_mscond=True, use_pos_embed=True)
-ABLATION_STEPS = 10
+ABLATION_STEPS = 5
 FULL_UNET_RTOL = 1e-3
 # sites these paths must reach: flash over the pixel
 # UNet's 1024 tokens (12 heads of 32 at batch 4) and the fused prologue
@@ -2907,47 +2931,78 @@ def run_train_cli(name, args, env=None):
     return out, json.loads(lines[0][len("train summary: "):]), wall
 
 
-def train_cli_phase(card, dots, arch, label, steps, logroot, resume):
+def train_cli_phase(card, dots, arch, logroot):
     """The full-width t2i training CLI under torchrun --standalone
     --nproc_per_node 1 (NCCL at world size 1), --bf16_train, the config's
-    batch of 32 from the tree, ``steps`` steps with the image log every
-    IMG_LOG_EVERY steps, then its test pass (DDIM CLI_TEST_STEPS, one
-    test batch, PNGs); launches per step held to the architecture's. With
-    ``resume``: the image log's PNGs checked (``cli_image_log_check``),
-    then one more step with ``--fsdp`` resumed from the run's ``last``
-    (the sharded restore; ``fsdp_phase`` holds the ``--fsdp`` step bit
-    for bit to the replicated one). Returns the run directory."""
-    all_kernel = label == "all-kernel"
-    name = f"t2i training CLI, {label}"
-    run_name = f"t2i_cli_{label.replace('-', '_')}"
-    common = ["-b", str(T2I), "-t", "--bf16_train", "--img_log_every_steps",
-              str(IMG_LOG_EVERY), "--log_every_steps", "1",
-              "--val_every_steps", "0", "-l", str(logroot), "-n", run_name,
-              *dots]
-    env = ALL_KERNELS if all_kernel else {}
+    batch of 32 from the tree, CLI_STEPS["default"] steps with the image
+    log every IMG_LOG_EVERY steps, then its test pass (DDIM CLI_TEST_STEPS,
+    one test batch, PNGs); launches per step held to the architecture's;
+    the image log's PNGs checked (``cli_image_log_check``). Returns the
+    run directory."""
+    name, steps = "t2i training CLI, default", CLI_STEPS["default"]
 
     def run_dirs():
-        return {d for d in logroot.iterdir() if d.name.endswith(run_name)} \
+        return {d for d in logroot.iterdir() if d.name.endswith(CLI_RUN)} \
             if logroot.exists() else set()
 
     before = run_dirs()
     out, summ, wall = run_train_cli(name, [
-        *common, "--max_steps", str(steps), "--test_steps",
-        str(CLI_TEST_STEPS), "--test_batches", "1"], env)
+        *train_cli_args(dots, logroot), "--max_steps", str(steps)])
     run_dir = run_dirs() - before
     if len(run_dir) != 1:
         raise AssertionError(f"{name}: run dirs {run_dir}")
     run_dir = run_dir.pop()
+    check_train_cli(name, run_dir, out, summ, wall, arch, False, 0)
+    written = cli_image_log_check(name, run_dir, dots)
+    log(f"{name}: the image log wrote {written}; inputs and captions equal "
+        f"the CLI loader's third batch's grids")
+    return run_dir
+
+
+def train_cli_resume_phase(card, dots, arch, run_dir, logroot):
+    """The same CLI all-kernel, resumed from the default run's ``last``
+    with ``--fsdp`` (the sharded restore) for CLI_STEPS["all-kernel"] more
+    steps, then its test pass: the restored step, launches per step held
+    to the all-kernel architecture's, the test pass's PNGs."""
+    name, start = "t2i training CLI, all-kernel", CLI_STEPS["default"]
+    with all_kernels():
+        out, summ, wall = run_train_cli(f"{name}, resumed with --fsdp", [
+            *train_cli_args(dots, logroot), "--auto_resume", "True",
+            "--max_steps", str(start + CLI_STEPS["all-kernel"]), "--fsdp"],
+            ALL_KERNELS)
+        if f"Restored training state at step {start} " not in out \
+                or not summ["fsdp"]:
+            raise AssertionError(f"{name}: resume with --fsdp\n"
+                                 f"{out[-3000:]}")
+        check_train_cli(f"{name}, resumed with --fsdp from the default "
+                        f"run's step {start}", run_dir, out, summ, wall, arch,
+                        True, start)
+
+
+def train_cli_args(dots, logroot):
+    """The flags both training CLI runs share (one run name, so that
+    ``--auto_resume`` finds the first run)."""
+    return ["-b", str(T2I), "-t", "--bf16_train", "--img_log_every_steps",
+            str(IMG_LOG_EVERY), "--log_every_steps", "1",
+            "--val_every_steps", "0", "-l", str(logroot), "-n", CLI_RUN,
+            "--test_steps", str(CLI_TEST_STEPS), "--test_batches", "1",
+            *dots]
+
+
+def check_train_cli(name, run_dir, out, summ, wall, arch, all_kernel, start):
+    """A training CLI run's steps, launches (per step the architecture's,
+    and the image log's when it fired), test pass PNGs and its log line;
+    ``start``: the step it resumed from."""
+    steps = CLI_STEPS["all-kernel" if all_kernel else "default"]
     # the image log (when it fired): one encode and one decode (with its
     # re-quantization) at LOG_N
     logged = len(summ["image_log_seconds"])
-    if logged != steps // IMG_LOG_EVERY:
+    if logged != (start + steps) // IMG_LOG_EVERY - start // IMG_LOG_EVERY:
         raise AssertionError(f"{name}: {logged} image logs")
-    with (all_kernels() if all_kernel else contextlib.nullcontext()):
-        per_step = expected_train_launches(arch, all_kernel)
-        log_want = expected_first_stage_launches(
-            arch, all_kernel, encodes=logged, decodes=logged,
-            requantizes=logged)
+    per_step = expected_train_launches(arch, all_kernel)
+    log_want = expected_first_stage_launches(
+        arch, all_kernel, encodes=logged, decodes=logged,
+        requantizes=logged)
     want = {k: v * steps + log_want[k] for k, v in per_step.items()}
     got = {k: v for k, v in summ["launches"].items() if k in want}
     if summ["steps"] != steps or got != want:
@@ -2966,10 +3021,11 @@ def train_cli_phase(card, dots, arch, label, steps, logroot, resume):
     secs = summ["step_seconds"]
     steady = secs[1:] or secs
     log(f"{name} on {summ['card']}: torchrun, NCCL, world size "
-        f"{summ['world_size']}, batch {summ['global_batch']}, bf16, "
-        f"{steps} steps: process wall {wall:.1f} s, set-up "
-        f"{summ['setup_seconds']:.2f} s (start to first step: model, data, "
-        f"scale_by_std); step seconds {rounded(secs, 4)}, "
+        f"{summ['world_size']}, fsdp {summ['fsdp']}, batch "
+        f"{summ['global_batch']}, bf16, {steps} steps: process wall "
+        f"{wall:.1f} s, set-up {summ['setup_seconds']:.2f} s (start to "
+        f"first step: model, data, scale_by_std or the restore); step "
+        f"seconds {rounded(secs, 4)}, "
         f"{TRAIN_BATCH * len(steady) / sum(steady):.3f} img/s after the "
         f"first; loader wait share {rounded(summ['data_wait_share'], 4)}; "
         f"peak memory above the model {summ['peak_gib_above_model']:.2f} "
@@ -2981,35 +3037,14 @@ def train_cli_phase(card, dots, arch, label, steps, logroot, resume):
         f"at {LOG_N} beside), {summ['launches']['decode_jpeg']} nvJPEG "
         f"decodes; test pass DDIM {CLI_TEST_STEPS} at batch {TRAIN_BATCH}: "
         f"{len(pngs)} PNGs, {test_ips} img/s")
-    if not resume:
-        return run_dir
-    written = cli_image_log_check(name, run_dir, dots)
-    log(f"{name}: the image log wrote {written}; inputs and captions equal "
-        f"the CLI loader's third batch's grids")
-
-    out, summ, wall = run_train_cli(f"{name}, resumed with --fsdp", [
-        *common, "--auto_resume", "True", "--max_steps", str(steps + 1),
-        "--no_test", "True", "--fsdp"], env)
-    if f"Restored training state at step {steps} " not in out \
-            or not summ["fsdp"] or summ["steps"] != 1 \
-            or {k: v for k, v in summ["launches"].items()
-                if k in per_step} != per_step:
-        raise AssertionError(f"{name}: resume with --fsdp\n{out[-3000:]}")
-    log(f"{name}, resumed with --fsdp from the replicated run's last on "
-        f"{card}: NCCL, world size {summ['world_size']}, restored step "
-        f"{steps}, one step {summ['step_seconds'][0]:.3f} s, train state "
-        f"{summ['state_gib_per_rank']:.3f} GiB a rank, peak memory above "
-        f"the model {summ['peak_gib_above_model']:.2f} GiB, process wall "
-        f"{wall:.1f} s, set-up {summ['setup_seconds']:.2f} s")
-    return run_dir
 
 
 def dataset_sampling_phase(card, dots, run_dir, out_root):
     """The sampling CLI in dataset mode from the training CLI's run (its
     EMA): the t2i test split of the tree in batches of DATASET_BATCH,
-    PLMS DATASET_STEPS, CFG 1.5, two shards (-ngpu 2 -igpu 0/1) one after
-    the other, -n DATASET_SAMPLES each; each shard's npz holds the first
-    samples of its split (file names against
+    PLMS DATASET_STEPS, CFG 1.5, the shards DATASET_SHARDS of two (-ngpu
+    2 -igpu i) one after the other, -n DATASET_SAMPLES each; each shard's
+    npz holds the first samples of its split (file names against
     ``split_indices_deterministic``); launches held to the
     architecture's."""
     from frido_tpu_torch.cli import sample_diffusion as scli
@@ -3021,7 +3056,7 @@ def dataset_sampling_phase(card, dots, run_dir, out_root):
                                  device=torch.device("cuda", 0))
     path = dict(PATHS["t2i"], cfg_batched=True)
     seen = set()
-    for shard in range(2):
+    for shard in DATASET_SHARDS:
         argv = ["-cfg", str(T2I), "-r", str(run_dir), "-plms", "-c",
                 str(DATASET_STEPS), "-G", "-gs", str(GUIDANCE), "-bs",
                 str(DATASET_BATCH), "-n", str(DATASET_SAMPLES), "-ngpu", "2",
@@ -3064,14 +3099,15 @@ def dataset_sampling_phase(card, dots, run_dir, out_root):
         torch.cuda.empty_cache()
 
 
-def data_cli_phases(card, arch):
-    """The data layer (and a resumed loader's replay), the training CLI in
-    both configurations (default resumed, then dataset sampling from its
-    run), the FID Inception and the FID CLI on the samples, the MS-VQGAN
-    training CLI and the reconstruction CLI on its model, over a
-    mini-COCO-2014 tree of TREE_IMAGES records a split written from the
-    fixtures, and the VG and OpenImages loaders over trees of their own,
-    under build/ (the train states take some GiB)."""
+def data_cli_phases(card, arch, runbook_arch):
+    """The data layer (and a resumed loader's replay), the training CLI
+    (default; then dataset sampling and the acceptance chain from its run;
+    then all-kernel, resumed from it with --fsdp), the notebook, the
+    multishard runbook from the run, the FID Inception, the FID CLI on the
+    samples, the MS-VQGAN training CLI, the reconstruction CLI on its
+    model and the VG and OpenImages loaders over trees of their own; the
+    rest over a mini-COCO-2014 tree of TREE_IMAGES records a split written
+    from the fixtures, under build/ (the train states take some GiB)."""
     import shutil
 
     from frido_tpu_torch.tools.make_mini_coco import write_tree
@@ -3094,25 +3130,25 @@ def data_cli_phases(card, arch):
         resume_phase(card, dots)
         mark("resume")
         torch.cuda.empty_cache()
-        run_dir = train_cli_phase(card, dots, arch, "default",
-                                  CLI_STEPS["default"], work / "logs",
-                                  resume=True)
+        logroot = work / "logs"
+        run_dir = train_cli_phase(card, dots, arch, logroot)
         mark("train CLI default")
         dataset_sampling_phase(card, dots, run_dir, work / "samples")
         mark("dataset sampling")
         acceptance_phase(card, root, run_dir, work)
         mark("acceptance chain")
+        train_cli_resume_phase(card, dots, arch, run_dir, logroot)
+        mark("train CLI all-kernel, --fsdp resumed")
+        notebook_phase(card, work)
+        mark("notebook")
+        runbook_phase(card, dots, run_dir, work, runbook_arch)
+        mark("runbooks")
         shutil.rmtree(run_dir)
         torch.cuda.empty_cache()
         inception_phase(card)
         eval_fid_phase(card, work, root / "val2014",
                        work / "samples" / "shard0" / "sample")
         mark("eval: Inception, FID")
-        with all_kernels():
-            train_cli_phase(card, dots, arch, "all-kernel",
-                            CLI_STEPS["all-kernel"], work / "logs",
-                            resume=False)
-        mark("train CLI all-kernel")
         model = msvqgan_cli_phase(card, root, work)
         mark("MS-VQGAN training CLI")
         recon_phase(card, model, root, work)
@@ -4196,9 +4232,9 @@ def ddpm_pixel_phase(card):
     DDIM step, one bf16 train step at batch 32 and one adm UNet call,
     checked (forward, and gradient where it takes one) as in
     ``check_sites``; in each QKV order the fp32 UNet card against CPU,
-    DDIM-10 at batch 4 and the bf16 training steps in both configurations
-    (img/s, launches held to the architecture's, peak memory); the adm
-    call. Returns the sites' "other sites" entries."""
+    DDIM-PIXEL_STEPS at batch 4 and the bf16 training steps in both
+    configurations (img/s, launches held to the architecture's, peak
+    memory); the adm call. Returns the sites' "other sites" entries."""
     t0 = time.perf_counter()
     model = instantiate_from_config(pixel_config(False), seed=0)
     randomize_zero_init_(model, 1)
@@ -4285,8 +4321,8 @@ def t2i_ablations_phase(card):
     pass (conditioning, both stages' UNet calls on their expert trunks with
     the mscond branch and position embeddings, decode) and of one bf16
     train step at batch 32, checked as in ``check_sites``; one fp32 UNet
-    call a stage card against CPU; PLMS-10 (CFG 1.5) with the decode at
-    batch 4 in both configurations; one bf16 train step at batch 32.
+    call a stage card against CPU; PLMS-ABLATION_STEPS (CFG 1.5) with the
+    decode at batch 4 in both configurations; one bf16 train step at batch 32.
     Returns the sites' "other sites" entries."""
     t0 = time.perf_counter()
     model = instantiate_from_config(ablations_config(), seed=0)
@@ -4524,6 +4560,172 @@ def acceptance_phase(card, tree, run_dir, work):
             f"{tol:g}: exit {rc}, {got['status']}")
 
 
+def run_runbooks(book, runs):
+    """``bash book RUNBOOK_SHARDS`` in each (cwd, env) of ``runs``, all
+    started at once, each in a session of its own with its stdout and
+    stderr in ``<cwd>.out`` and ``<cwd>.err``; waited for in order, all
+    within RUNBOOK_TIMEOUT. Returns each one's (exit code, stdout, stderr,
+    seconds from the start to the wait's return)."""
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for cwd, env in runs:
+            with open(f"{cwd}.out", "w") as out, \
+                    open(f"{cwd}.err", "w") as err:
+                procs.append(subprocess.Popen(
+                    ["bash", str(book), str(RUNBOOK_SHARDS)], cwd=str(cwd),
+                    env=env, stdout=out, stderr=err,
+                    stdin=subprocess.DEVNULL, start_new_session=True))
+        results = []
+        for (cwd, _), proc in zip(runs, procs):
+            left = RUNBOOK_TIMEOUT - (time.perf_counter() - t0)
+            try:
+                rc = proc.wait(timeout=max(left, 1))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"runbook in {cwd}: still running "
+                                     f"after {RUNBOOK_TIMEOUT} s")
+            results.append((rc, pathlib.Path(f"{cwd}.out").read_text(),
+                            pathlib.Path(f"{cwd}.err").read_text(),
+                            time.perf_counter() - t0))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    return results
+
+
+def runbook_phase(card, dots, run_dir, work, arch):
+    """The port's ``eval_t2i_multiGPU.sh RUNBOOK_SHARDS`` from the
+    training CLI's run over the tree's first RUNBOOK_RECORDS test
+    records, and beside it the same in an empty directory with ``CKPT``
+    missing. Each shard's launches are held to ``arch``'s (the t2i model
+    at PLMS RUNBOOK_STEPS, CFG batched) for one image. The run's train
+    states other than its ``last`` are removed first (disk)."""
+    import shutil
+
+    import yaml
+
+    from frido_tpu_torch.config import apply_dotlist
+    from frido_tpu_torch.data.datamodule import split_indices_deterministic
+
+    ckpts = run_dir / "checkpoints"
+    last = os.path.basename(json.loads(
+        (ckpts / "last.json").read_text())["path"].rstrip("/"))
+    for old in ckpts.glob("step_*"):
+        if old.name != last:
+            shutil.rmtree(old)
+    cwd, failing = work / "runbook", work / "runbook_missing"
+    failing.mkdir()
+    ids = work / "ids_runbook.txt"
+    ids.write_text("".join(f"{i:012d}\n"
+                           for i in range(1, RUNBOOK_RECORDS + 1)))
+    cfg = apply_dotlist(load_yaml(str(T2I)), dots + [
+        f"data.params.test.params.img_id_file={ids}"])
+    config = cwd / T2I.relative_to(REPO)
+    config.parent.mkdir(parents=True)
+    config.write_text(yaml.safe_dump(cfg))
+    book = REPO / "frido_tpu_torch" / "runbooks" / "frido" / (
+        "eval_t2i_multiGPU.sh")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DEVICE", "FRIDO_TPU_STRICT_VOCAB")
+           and k not in ALL_KERNELS}
+    env.update(PYTHONPATH=str(REPO), CKPT=str(run_dir))
+    # the sampling CLI refuses a missing -r before it reads the config or
+    # touches the card: the failing run needs no config
+    (rc, out, err, secs), run = run_runbooks(book, [
+        (failing, dict(env, CKPT=str(failing / "none"))), (cwd, env)])
+    if rc == 0 or os.listdir(failing) \
+            or "no such file or directory" not in err:
+        raise AssertionError(f"runbook with CKPT missing: exit {rc}\n"
+                             f"{err[-3000:]}")
+    log(f"runbook with CKPT missing: exit {rc} in {secs:.1f} s, nothing "
+        f"sampled ({err.strip().splitlines()[-1]})")
+    rc, out, err, secs = run
+    if rc != 0:
+        raise AssertionError(f"runbook: exit {rc}\n{out[-3000:]}\n"
+                             f"{err[-3000:]}")
+    ds = instantiate_from_config(cfg["data"]["params"]["test"],
+                                 device=torch.device("cuda", 0))
+    summaries = sorted((json.loads(ln[len("sampling summary: "):])
+                        for ln in out.splitlines()
+                        if ln.startswith("sampling summary: ")),
+                       key=lambda x: x["shard"])
+    samples = cwd / "exp" / "t2i" / "samples" / "full"
+    seen = set()
+    for i, summ in enumerate(summaries):
+        idx = split_indices_deterministic(len(ds), RUNBOOK_SHARDS, i)
+        names = {os.path.splitext(ds.image_descriptions[
+            ds.image_ids[j]].file_name)[0] + ".png" for j in idx}
+        # one image a shard: one decode, its ground truth one JPEG
+        want = dict(expected_launches(arch, False), decode_jpeg=len(idx))
+        if (summ["shard"] != i or summ["device"] != "cuda"
+                or summ["images"] != len(idx) or len(idx) != 1
+                or seen & names
+                or summ["launches"] != want):
+            raise AssertionError(f"runbook shard {i}: {summ}, files "
+                                 f"{names}, launches want {want}")
+        seen |= names
+    written = {sub: set(os.listdir(samples / sub))
+               for sub in ("sample", "inputs")}
+    if len(summaries) != RUNBOOK_SHARDS or len(seen) != RUNBOOK_RECORDS \
+            or any(w != seen for w in written.values()):
+        raise AssertionError(f"runbook: {summaries}, wrote {written}, "
+                             f"want {seen}")
+    from frido_tpu_torch.utils.visualize import read_png
+    for name in seen:
+        if read_png(str(samples / "sample" / name)).shape != (256, 256, 3):
+            raise AssertionError(f"runbook: sample {name} shape")
+    log(f"runbook eval_t2i_multiGPU.sh {RUNBOOK_SHARDS} on {card}: "
+        f"{RUNBOOK_SHARDS} processes on card 0, PLMS {RUNBOOK_STEPS}, CFG "
+        f"1.5, bf16 UNet, CKPT the training CLI's run, {RUNBOOK_RECORDS} "
+        f"test records: exit 0 in {secs:.1f} s (beside the run with CKPT "
+        f"missing; limit {RUNBOOK_TIMEOUT} s); shards "
+        + "; ".join(f"{s['shard']}: {s['images']} image, load "
+                    f"{s['load_seconds']:.2f} s, sampling "
+                    f"{s['sample_seconds']:.2f} s, launches "
+                    f"{ {k: v for k, v in s['launches'].items() if v} }"
+                    for s in summaries)
+        + f" (the architecture's); files {sorted(seen)}")
+
+
+def notebook_phase(card, work):
+    """``frido_tpu_torch/demo.ipynb``'s code cells in order in one
+    namespace, the first cell's steps replaced by NOTEBOOK_STEPS, its
+    CKPT by '' (random weights) and its output folder put under ``work``;
+    launches counted from 0."""
+    nb = json.loads((REPO / "frido_tpu_torch" / "demo.ipynb").read_text())
+    cells = ["".join(c["source"]) for c in nb["cells"]
+             if c["cell_type"] == "code"]
+    ns = {}
+    exec(cells[0], ns)
+    ns.update(CKPT="", STEPS=NOTEBOOK_STEPS, OUT=str(work / "demo"))
+    zero_launches()
+    t0 = time.perf_counter()
+    with environ({"FRIDO_TPU_STRICT_VOCAB": "0"}):
+        for cell in cells[1:]:
+            exec(cell, ns)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    samples, grid, batch = ns["samples"], ns["grid"], ns["BATCH"]
+    if (ns["DEVICE"] != "cuda" or samples.shape != (batch, 256, 256, 3)
+            or not np.isfinite(samples).all()
+            or grid.shape != (256, 256 * batch, 3)
+            or not (work / "demo" / "grid.png").exists()
+            or launches["flash_attention"] < 1
+            or launches["vq_argmin"] < 1):
+        raise AssertionError(f"notebook: samples {samples.shape}, grid "
+                             f"{grid.shape}, launches {launches}")
+    log(f"notebook on {card}: {len(cells)} code cells, {ns['CONFIG']}, "
+        f"random weights, batch {batch}, PLMS {NOTEBOOK_STEPS}, CFG 1.5, "
+        f"bf16 UNet: grid {grid.shape}, {secs:.1f} s (model build "
+        f"included); launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    del ns
+    torch.cuda.empty_cache()
+
+
 def build_main_model(config):
     t0 = time.perf_counter()
     model = instantiate_from_config(load_yaml(str(config))["model"], seed=0)
@@ -4644,6 +4846,8 @@ def main():
 
     model = build_main_model(T2I)
     t2i_arch = architecture(model, PATHS["t2i"], 1)
+    runbook_arch = architecture(model, dict(PATHS["t2i"], cfg_batched=True),
+                                RUNBOOK_STEPS)
     unet_conv_sum_phase(model)
     default = main_path_phase(card, model, "t2i", "default")
     with all_kernels():
@@ -4728,7 +4932,8 @@ def main():
     mark("ddpm pixel")
     other += t2i_ablations_phase(card)
     mark("t2i ablations")
-    for phase, secs in data_cli_phases(card, t2i_arch).items():
+    for phase, secs in data_cli_phases(card, t2i_arch,
+                                       runbook_arch).items():
         seconds[phase] = secs
     dryrun_phase(card)
     mark("multi-card dry run")

@@ -7,7 +7,9 @@
 The JAX script's flags and lines: ``FID: x`` and, with
 ``--inception_score``, ``IS: mean +/- std`` of ``--fake`` from the fc head
 over the features already computed (no second tower pass). Without
-``FRIDO_TPU_INCEPTION`` it prints the skip line and exits. Images are
+``FRIDO_TPU_INCEPTION`` it prints the skip line, and as a program exits
+with 1 and an error naming the variable (the JAX script exits 0), so a
+runbook's FID step fails. Images are
 read without PIL and the tower runs on the card (``--device cpu`` for
 the CPU) with TF32 off, so its features are fp32 (``eval/fid.py``).
 In process, :func:`main` returns the numbers and the seconds taken.
@@ -16,6 +18,7 @@ In process, :func:`main` returns the numbers and the seconds taken.
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 from typing import Any, Dict, Optional
 
@@ -73,4 +76,6 @@ def main(argv=None) -> Optional[Dict[str, Any]]:
 
 
 if __name__ == "__main__":
-    main()
+    if main() is None:
+        sys.exit("eval_fid: no FID computed: FRIDO_TPU_INCEPTION (the "
+                 "pytorch-fid InceptionV3 weights) is not set")

@@ -87,6 +87,7 @@ import yaml
 
 from frido_tpu_torch.config import instantiate_from_config, load_configs
 from frido_tpu_torch.io import checkpoint as ckpt_io
+from frido_tpu_torch.ops.cuda import launch_counts
 from frido_tpu_torch.parallel import dist
 from frido_tpu_torch.training import optim, trainer as trainer_mod
 from frido_tpu_torch.training.image_logger import ImageLogger
@@ -228,20 +229,6 @@ def batch_to_arrays(model, batch) -> Dict[str, Any]:
         cond = batch[key] if key in batch else batch
         out["tokens"] = model.tokenize(cond)
     return out
-
-
-def launch_counts() -> Dict[str, int]:
-    """Each kernel wrapper's launch count, and the JPEG decodes."""
-    from frido_tpu_torch.ops.cuda.attention import (flash_attention,
-                                                    smalls_attention)
-    from frido_tpu_torch.ops.cuda.conv import conv3x3, conv3x3_norm_silu
-    from frido_tpu_torch.ops.cuda.jpeg import decode_jpeg
-    from frido_tpu_torch.ops.cuda.norm import group_norm
-    from frido_tpu_torch.ops.cuda.vq import vq_argmin
-
-    return {f.__name__: f.launches for f in (
-        flash_attention, vq_argmin, group_norm, smalls_attention, conv3x3,
-        conv3x3_norm_silu, decode_jpeg)}
 
 
 def step_seed(seed: int, step: int) -> int:

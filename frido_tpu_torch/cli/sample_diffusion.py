@@ -35,7 +35,10 @@ the inputs under ``inputs/`` by ``file_name`` (``--get_codebook``:
 the same device as the model.
 
 The model runs on the card unless ``--device cpu``; ``--bf16`` (on by
-default, as in the JAX script) runs the UNet in bf16.
+default, as in the JAX script) runs the UNet in bf16. A ``-r`` that does
+not exist is refused before the model is built. The last line is
+``sampling summary: {json}``: the device, the shard, the images, the
+seconds and each kernel's launches.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ import torch
 
 from frido_tpu_torch.config import instantiate_from_config, load_configs
 from frido_tpu_torch.device import resolve_device
+from frido_tpu_torch.ops.cuda import launch_counts
 from frido_tpu_torch.utils.visualize import to_uint8, write_png
 
 
@@ -170,7 +174,7 @@ def build_model(cfg: Dict[str, Any], ckpt: Optional[str], use_ema: bool = True,
     if os.path.isfile(os.path.join(ckpt, ckpt_io.PARAMS_FILE)):
         return ckpt_io.restore_params(ckpt, model)
     if os.path.isdir(ckpt):                      # a train state
-        raw = ckpt_io.restore_raw(ckpt)
+        raw = ckpt_io.restore_raw(ckpt, mmap=True)
         model.load_state_dict(raw["params"], strict=True)
         if use_ema and raw["ema"]:
             _swap_in(model.model, raw["ema"])
@@ -238,6 +242,9 @@ def run(args) -> Dict[str, Any]:
                                     or args.num_shards != 1):
         raise ValueError("-n and -ngpu pick and split a dataset's samples; "
                          "with --prompt the batch is -bs copies of it")
+    if args.resume and not os.path.exists(args.resume):
+        raise FileNotFoundError(f"-r {args.resume}: no such file or "
+                                f"directory")
     cfg = load_configs([args.cfg_path],
                        dotlist=getattr(args, "config_overrides", None))
     device = resolve_device(args.device)
@@ -261,9 +268,12 @@ def run(args) -> Dict[str, Any]:
     out_dir = os.path.join(out_base, args.exp_name)
     os.makedirs(out_dir, exist_ok=True)
     common = dict(out_dir=out_dir, model=model, load_seconds=load_seconds)
+    launches_before = launch_counts()
     if args.prompt is None:
-        return dict(common, **sample_dataset(args, cfg, model, pipeline, gen,
-                                             out_dir, device))
+        res = dict(common, **sample_dataset(args, cfg, model, pipeline, gen,
+                                            out_dir, device))
+        print_summary(args, device, res, launches_before)
+        return res
     tokens = model.tokenize([args.prompt] * args.batch_size)
     utokens = model.tokenize([""] * args.batch_size)
     t0 = time.perf_counter()
@@ -279,8 +289,25 @@ def run(args) -> Dict[str, Any]:
     save_batch(imgs, out_dir)
     print(f"Throughput for this batch: "
           f"{args.batch_size / sample_seconds:.4f}")
-    return dict(common, images=imgs, codes=codes,
-                sample_seconds=sample_seconds)
+    res = dict(common, images=imgs, codes=codes,
+               sample_seconds=sample_seconds)
+    print_summary(args, device, res, launches_before)
+    return res
+
+
+def print_summary(args, device, res, launches_before) -> None:
+    """One ``sampling summary: {json}`` line: the device, the shard, the
+    images written, the seconds, and each kernel's launches during the
+    sampling."""
+    images = res["images"]
+    summary = {"device": str(device), "shard": args.shard_idx,
+               "num_shards": args.num_shards,
+               "images": 0 if images is None else len(images),
+               "load_seconds": res["load_seconds"],
+               "sample_seconds": res["sample_seconds"],
+               "launches": {k: v - launches_before[k]
+                            for k, v in launch_counts().items()}}
+    print("sampling summary: " + json.dumps(summary), flush=True)
 
 
 def sample_dataset(args, cfg, model, pipeline, gen, out_dir, device):

@@ -45,10 +45,10 @@ from typing import Any, Dict, List, Optional
 import torch
 import yaml
 
-from frido_tpu_torch.cli.main import (launch_counts, peek_first_batch,
-                                      seed_data, str2bool)
+from frido_tpu_torch.cli.main import peek_first_batch, seed_data, str2bool
 from frido_tpu_torch.config import instantiate_from_config, load_configs
 from frido_tpu_torch.io import checkpoint as ckpt_io
+from frido_tpu_torch.ops.cuda import launch_counts
 from frido_tpu_torch.training import optim
 from frido_tpu_torch.training.vqgan_trainer import VQGANTrainer
 

@@ -9,11 +9,18 @@ and the data module), so the configs under ``configs/frido/`` and
 ``configs/msvqgan/`` read unmodified. :func:`load_configs` merges YAML
 files left to right and applies ``a.b.c=value`` dot-list overrides on top, as
 the CLIs take them.
+
+Five shipped configs name id lists and a class table inside the JAX package
+(``frido_tpu/data/eval_ids/...``). Every YAML file and dot-list value read
+here maps such a string onto the port's byte-equal copy of the same name
+in ``frido_tpu_torch/data/eval_ids/`` (:func:`port_data_path`), so no run
+of the port opens a file of the JAX package.
 """
 
 from __future__ import annotations
 
 import importlib
+import os
 from typing import Any, Dict, List, Optional
 
 import yaml
@@ -84,6 +91,32 @@ _TARGET_ALIASES: Dict[str, str] = {
 }
 
 
+JAX_EVAL_IDS = "frido_tpu/data/eval_ids/"
+EVAL_IDS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "eval_ids")
+
+
+def port_data_path(value: Any) -> Any:
+    """A string naming a file under the JAX package's ``data/eval_ids/`` ->
+    the path of the port's copy of it; any other value unchanged."""
+    if not isinstance(value, str) or not value.startswith(JAX_EVAL_IDS):
+        return value
+    path = os.path.join(EVAL_IDS, value[len(JAX_EVAL_IDS):])
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"the config names {value!r}; the port has no copy of it in "
+            f"{EVAL_IDS}")
+    return path
+
+
+def _port_paths(node: Any) -> Any:
+    if isinstance(node, dict):
+        return {k: _port_paths(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_port_paths(v) for v in node]
+    return port_data_path(node)
+
+
 def resolve_target(target: str) -> Any:
     """Resolve a dotted target string (aliases first) to a class."""
     target = _TARGET_ALIASES.get(target, target)
@@ -108,7 +141,7 @@ def instantiate_from_config(config: Any, **extra_kwargs) -> Any:
 
 def load_yaml(path: str) -> Dict[str, Any]:
     with open(path) as f:
-        return yaml.safe_load(f) or {}
+        return _port_paths(yaml.safe_load(f) or {})
 
 
 def merge_dicts(base: Dict[str, Any], override: Dict[str, Any]
@@ -126,7 +159,8 @@ def merge_dicts(base: Dict[str, Any], override: Dict[str, Any]
 def apply_dotlist(config: Dict[str, Any], dotlist: List[str]
                   ) -> Dict[str, Any]:
     """Apply ``a.b.c=value`` overrides (the OmegaConf dot-list idiom); each
-    value is parsed as YAML. Nodes on the way are copied, not changed."""
+    value is parsed as YAML (a JAX package id list mapped onto the port's
+    copy). Nodes on the way are copied, not changed."""
     out = dict(config)
     for item in dotlist:
         if "=" not in item:
@@ -140,7 +174,7 @@ def apply_dotlist(config: Dict[str, Any], dotlist: List[str]
             nxt = dict(nxt) if isinstance(nxt, dict) else {}
             node[p] = nxt
             node = nxt
-        node[parts[-1]] = yaml.safe_load(raw)
+        node[parts[-1]] = _port_paths(yaml.safe_load(raw))
     return out
 
 

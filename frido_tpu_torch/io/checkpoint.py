@@ -68,15 +68,18 @@ def restore_params(path: str, module: torch.nn.Module) -> torch.nn.Module:
     return module
 
 
-def restore_raw(path: str) -> Dict[str, Any]:
+def restore_raw(path: str, mmap: bool = False) -> Dict[str, Any]:
     """What a checkpoint directory holds, without a target: a train
     state's dict (``step_N``, a tag) or a params-only state dict. The
     sampling CLI reads the EMA out of a train state this way, without
-    building an optimizer."""
+    building an optimizer. ``mmap``: the tensors map the file, so only
+    what the caller copies out is read (the sampling CLI skips the
+    optimizer's moments, half of a train state)."""
     for name in (STATE_FILE, PARAMS_FILE):
         file = os.path.join(path, name)
         if os.path.exists(file):
-            return torch.load(file, map_location="cpu", weights_only=True)
+            return torch.load(file, map_location="cpu", weights_only=True,
+                              mmap=mmap)
     raise FileNotFoundError(f"no {STATE_FILE} or {PARAMS_FILE} in {path}")
 
 

@@ -1,0 +1,12 @@
+#!/usr/bin/env bash
+# Diffusion training under torchrun, one rank a card (one rank on the
+# device DEVICE names, DEVICE=cpu for the CPU). Extra arguments go to the
+# training CLI; the config's max_epochs is not read, so --max_steps N
+# stops a run. From the repository root.
+set -e
+. "$(dirname "$0")/../lib.sh"
+NPROC=$(n_ranks)
+torchrun --standalone --nproc_per_node="$NPROC" -m frido_tpu_torch.cli.main \
+    --base configs/frido/sg2i/frido_f16f8_coco.yaml \
+    -t True -l ./exp_my/frido/sg2i -n sg2i_f16f8_coco --scale_lr False \
+    ${DEVICE:+--device "$DEVICE"} "$@"

@@ -8,9 +8,9 @@ PLMS 200, CFG 1.5 -> FID against the ground-truth inputs.
 
 The published number for this chain is FID ~= 64.85 on the 1000-image
 t2i mini-val (``configs/frido/t2i/frido_f16f8_coco_mini.yaml``, whose
-test split's ``img_id_file`` names the JAX package's id list; the chain
-reads the port's copy in ``frido_tpu_torch/data/eval_ids/``); FID moves
-a few points with the diffusion seed, hence ``TOL``.
+test split's id list the config loader reads from the port's copy in
+``frido_tpu_torch/data/eval_ids/``); FID moves a few points with the
+diffusion seed, hence ``TOL``.
 
 Assets the repository does not ship (each one missing is named, and the
 chain exits 2):
@@ -59,7 +59,6 @@ import os
 import sys
 from typing import Dict, List, Optional
 
-from frido_tpu_torch.config import load_yaml
 from frido_tpu_torch.text import vendor
 
 DEFAULTS = {"CFG": "configs/frido/t2i/frido_f16f8_coco_mini.yaml",
@@ -67,9 +66,6 @@ DEFAULTS = {"CFG": "configs/frido/t2i/frido_f16f8_coco_mini.yaml",
             "SEED": "42", "TOL": "8"}
 EXPECTED_FID = "64.85"
 GUIDANCE = "1.5"
-JAX_EVAL_IDS = "frido_tpu/data/eval_ids/"
-EVAL_IDS = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "data", "eval_ids")
 
 
 def note(msg: str) -> None:
@@ -114,25 +110,12 @@ def missing_assets(k: Dict[str, str]) -> List[str]:
     return missing
 
 
-def id_file_override(cfg_path: str) -> List[str]:
-    """The test split's ``img_id_file`` pointed at the port's copy when the
-    config names the JAX package's (``frido_tpu/data/eval_ids/``)."""
-    test = load_yaml(cfg_path).get("data", {}).get("params", {}).get(
-        "test", {}).get("params", {})
-    name = test.get("img_id_file") or ""
-    if not name.startswith(JAX_EVAL_IDS):
-        return []
-    return ["data.params.test.params.img_id_file="
-            + os.path.join(EVAL_IDS, name[len(JAX_EVAL_IDS):])]
-
-
 def overrides(k: Dict[str, str]) -> List[str]:
-    """The port's copy of the mini-val ids, ``DATA_PATH`` for every split,
-    then ``EXTRA_OVERRIDES``."""
-    out = id_file_override(k["CFG"])
+    """``DATA_PATH`` for every split, then ``EXTRA_OVERRIDES``."""
+    out = []
     if k["DATA_PATH"]:
-        out += [f"data.params.{split}.params.data_path={k['DATA_PATH']}"
-                for split in ("train", "validation", "test")]
+        out = [f"data.params.{split}.params.data_path={k['DATA_PATH']}"
+               for split in ("train", "validation", "test")]
     return out + k["EXTRA_OVERRIDES"].split()
 
 

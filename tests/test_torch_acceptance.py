@@ -14,7 +14,8 @@ the cases of ``tests/test_acceptance_chain.py``:
   around it (exit 0) and an expectation the toy cannot meet (exit 1);
 - missing assets: exit 2, each one named.
 
-The mini-val config's id list is read from the port's copy. Each FID
+The mini-val config's id list is read from the port's copy (the config
+loader maps it). Each FID
 takes a 2048^2 ``sqrtm`` on the host (10-25 s on this CPU), most of this
 file's time.
 """
@@ -204,15 +205,16 @@ def test_chain_needs_the_card(ws, monkeypatch, tmp_path):
 
 
 def test_mini_val_ids_are_the_ports_copy():
-    """The mini-val config names the JAX package's id list; the chain
-    reads the port's copy, byte for byte the same."""
-    (dot,) = acceptance.id_file_override(str(REPO / MINI))
-    path = dot.split("=", 1)[1]
+    """The mini-val config names the JAX package's id list; the config
+    loader, through which the chain reads it, gives the port's copy, byte
+    for byte the same, and the chain adds no id override of its own."""
+    cfg = load_configs([str(REPO / MINI)])
+    path = cfg["data"]["params"]["test"]["params"]["img_id_file"]
     assert path.startswith(str(REPO / "frido_tpu_torch" / "data"))
     assert pathlib.Path(path).read_bytes() == (
         REPO / "frido_tpu" / "data" / "eval_ids" /
         "image_ids_t2i_coco_mini.txt").read_bytes()
     k = acceptance.knobs({"DATA_PATH": "/d", "EXTRA_OVERRIDES": "a.b=1 c=2"})
-    assert acceptance.overrides(k) == [dot] + [
+    assert acceptance.overrides(k) == [
         f"data.params.{s}.params.data_path=/d"
         for s in ("train", "validation", "test")] + ["a.b=1", "c=2"]
