@@ -1,0 +1,12 @@
+"""Milliseconds a batch inside the ``decode`` span (the first stage's
+decode with its codebook lookup, on the device's timeline), in the
+traced sub-window."""
+
+
+def read(run):
+    if run.kind != "sample" or run.trace is None:
+        return None
+    spans = run.trace.spans_named("decode")
+    if not spans:
+        return None
+    return 1e3 * sum(b - a for a, b in spans) / run.traced_units

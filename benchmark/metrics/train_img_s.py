@@ -1,0 +1,9 @@
+"""Images of every training step completed in the window over the time from
+the window's start to the end of the last of them (host clock, the
+device synchronised after each step)."""
+
+
+def read(run):
+    from harness.common import rate
+
+    return rate(run.images, run.window_s) if run.kind == "train" else None
